@@ -1,0 +1,23 @@
+# Importing this package registers the built-in backend plugins.
+#
+# The torch device backend is registered lazily, as the reference registers
+# its jax backend: the "torch" scheme resolves to a factory that imports
+# torchdevice on first use.
+from repro_torch.pilot.api import register_backend
+
+__all__ = ["TorchDeviceBackend"]
+
+
+def _torchdevice_factory(**kwargs):
+    from repro_torch.pilot.backends.torchdevice import TorchDeviceBackend
+    return TorchDeviceBackend(**kwargs)
+
+
+register_backend("torch", _torchdevice_factory)
+
+
+def __getattr__(name):
+    if name == "TorchDeviceBackend":
+        from repro_torch.pilot.backends.torchdevice import TorchDeviceBackend
+        return TorchDeviceBackend
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,57 @@
+"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor anything of the JAX package ``repro``."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.extend(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            out.append(node.module)
+    return out
+
+
+def test_port_files_exist():
+    assert len(PORT_FILES) >= 12
+    assert all(p.exists() for p in PORT_FILES)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_or_reference(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_slice_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch.models.kmeans, repro_torch.streaming.engine\n"
+        "import repro_torch.pilot.backends.torchdevice, repro_torch.kernels._build\n"
+        "from repro_torch.pilot.api import PilotComputeService, PilotDescription\n"
+        "PilotComputeService().submit_pilot(\n"
+        "    PilotDescription(resource='torch://', attrs={'device': 'cpu'}))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok"
