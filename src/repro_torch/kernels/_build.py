@@ -1,7 +1,7 @@
 """Build the package's CUDA sources into shared libraries at first use.
 
 Every ``*.cu`` under a ``csrc/`` directory of this package is compiled by
-its own ``nvcc`` process into a shared library with
+its own ``nvcc`` process (all started together) into a shared library with
 a plain C interface under ``<repo>/build/repro_torch/``, and loaded with
 ``ctypes``.  The library's file name carries a hash of its ``csrc/``
 sources and the flags, so an edited source rebuilds and an unchanged one is
@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "BUILD_DIR", "sources", "build_all", "library"]
@@ -77,7 +78,8 @@ def _build(src: Path) -> dict:
 
 
 def build_all(stems=None) -> dict[str, dict]:
-    """Build the named sources (default: all) that are not built yet.
+    """Build the named sources (default: all) that are not built yet, one
+    ``nvcc`` process per source, all running at once.
 
     Returns ``{stem: {"path", "cached", "seconds", "log"}}``; ``log`` is
     nvcc's output (the ``-Xptxas -v`` report).  Raises ``RuntimeError`` if
@@ -87,7 +89,9 @@ def build_all(stems=None) -> dict[str, dict]:
     unknown = [s for s in stems if s not in srcs]
     if unknown:
         raise KeyError(f"no CUDA source named {unknown}; known: {sorted(srcs)}")
-    return {stem: _build(srcs[stem]) for stem in stems}
+    with ThreadPoolExecutor(max_workers=max(1, len(stems))) as pool:
+        built = list(pool.map(lambda stem: _build(srcs[stem]), stems))
+    return dict(zip(stems, built))
 
 
 def library(stem: str) -> ctypes.CDLL:

@@ -43,6 +43,7 @@ def test_importing_the_slice_loads_no_jax():
         "import sys\n"
         "import repro_torch.models.kmeans, repro_torch.streaming.engine\n"
         "import repro_torch.pilot.backends.torchdevice, repro_torch.kernels._build\n"
+        "import repro_torch.launch.serve, repro_torch.models.model\n"
         "from repro_torch.pilot.api import PilotComputeService, PilotDescription\n"
         "PilotComputeService().submit_pilot(\n"
         "    PilotDescription(resource='torch://', attrs={'device': 'cpu'}))\n"

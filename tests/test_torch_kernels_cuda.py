@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.kmeans_distance import ops
 from repro_torch.kernels.kmeans_distance.ref import assign_ref, pairwise_sq_dists_ref
 from repro_torch.models import kmeans
@@ -97,3 +99,56 @@ def test_update_refuses_tf32(device, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="allow_tf32"):
         kmeans.update(state, pts, torch.zeros(8, dtype=torch.int64, device=device))
+
+
+# -- K3 flash_attention -------------------------------------------------------
+
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}    # tests/test_kernels.py:64's
+
+
+def _qkv(bh, bkv, s, dh, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+                 for shape in ((bh, s, dh), (bkv, s, dh), (bkv, s, dh)))
+
+
+@pytest.mark.parametrize("bh,bkv,s,dh", [(56, 8, 1024, 64), (6, 3, 1000, 40),
+                                         (4, 4, 128, 64), (8, 2, 256, 64),
+                                         (2, 1, 64, 128), (14, 2, 48, 64),
+                                         (3, 1, 1, 16), (2, 2, 65, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_kernel_matches_plain(device, bh, bkv, s, dh, dtype):
+    q, k, v = _qkv(bh, bkv, s, dh, dtype, device)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), mha_ref(q, k, v).float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(device):
+    q, k, v = _qkv(4, 2, 64, 64, torch.float32, device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        fa_ops.flash_attention(q[:3], k, v)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k.cpu(), v)
+
+
+def test_attend_launches_the_kernel_once_per_layer(device):
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import model as M
+
+    cfg = reduced("qwen2-0.5b")
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=device)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    logits = M.forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    assert logits.shape == (2, 40, cfg.vocab_size) and torch.isfinite(logits).all()
