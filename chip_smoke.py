@@ -31,6 +31,13 @@ Phases, each printing JSON lines on standard output:
 * ``serve-alone`` — one such micro-batch generated in the main thread,
   without the engine, for comparison;
 * ``serve-profile`` — a shorter serve run under ``torch.profiler``;
+* ``kernel-K4`` — kernel K4 (``ssd_scan``) held against its plain version
+  ``ssd_ref`` (and a float64 run of it) at the prefill shape of
+  Mamba2-130M, a ragged length and with an initial state, with CUDA-event
+  times beside the bound;
+* ``lm-parity-mamba``, ``serve-alone-mamba``, ``serve-mamba`` and
+  ``serve-profile-mamba`` — the same four phases for full-width
+  Mamba2-130M, whose prefill runs K4;
 
 then each phase's seconds, the ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` line, and last
@@ -71,8 +78,9 @@ REPLACES = {"pairwise_sq_dists": "src/repro/kernels/kmeans_distance/kernel.py:57
 KERNEL_SHAPES = [(N_POINTS, k, DIM, "float32") for k in MODEL_SIZES] + [
     (8_001, 1_000, 130, "float32"), (8_001, 1_000, 130, "bfloat16")]
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py's
-# LM path: Qwen2-0.5B at full width (src/repro_torch/configs/qwen2_0_5b.py)
-LM_ARCH = "qwen2-0.5b"
+# LM paths at full width: Qwen2-0.5B (src/repro_torch/configs/qwen2_0_5b.py),
+# whose prefill runs K3, and Mamba2-130M (.../mamba2_130m.py), which runs K4
+DENSE_ARCH, SSM_ARCH = "qwen2-0.5b", "mamba2-130m"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:77"
 FA_SERVING = (4 * 14, 4 * 2, 1_024, 64)          # (BH, BKV, S, Dh) of a 4 x 1,024 prefill
@@ -95,6 +103,14 @@ LM_PARITY_TOL = 1e-3
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 32, 1_024, 8
 SERVE_PARTITIONS, SERVE_BATCH = 2, 4
 PROFILE_REQUESTS, PROFILE_NEW = 8, 8
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:75"
+SSD_Q = 64                                        # K4's own chunk length
+SSD_SERVING = (4, 1_024, 24, 64, 128)             # (batch, S, H, P, N) of a 4 x 1,024 prefill
+SSD_SHAPES = [(SSD_SERVING, False), ((1, 100, 24, 64, 128), False),
+              ((2, 256, 24, 64, 128), True)]      # ragged against SSD_Q; with h0
+SSD_CHUNK = 256                                   # Mamba2-130M's ssm_chunk
+SSD_TOL = 2e-4                                    # tests/test_kernels.py:96-99's
 
 
 def emit(obj) -> None:
@@ -131,14 +147,24 @@ def cuda_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def reset_counts() -> None:
-    """Set every kernel's launch count to 0."""
+def _counters() -> tuple[dict, ...]:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.kmeans_distance import ops as kd_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    for counts in (kd_ops.LAUNCHES, fa_ops.LAUNCHES):
+    return kd_ops.LAUNCHES, fa_ops.LAUNCHES, ssd_ops.LAUNCHES
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for counts in _counters():
         for name in counts:
             counts[name] = 0
+
+
+def launches(kernel: str) -> int:
+    """The launch count of the kernel named ``kernel``."""
+    return next(c[kernel] for c in _counters() if kernel in c)
 
 
 def fa_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int):
@@ -210,12 +236,15 @@ def phase_build() -> dict:
                       for s, i in built.items()},
           "kernels": kernels})
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     emit({"phase": "build", "kernel": "flash_attention",
           "dynamic_smem_bytes": {f"dh{dh}": fa_ops.smem_bytes(dh) for dh in (40, 64, 128)}})
+    emit({"phase": "build", "kernel": "ssd_scan",
+          "dynamic_smem_bytes": {f"n{n}": ssd_ops.smem_bytes(n) for n in (16, 128, 256)}})
     names = " ".join(k["symbol"] for k in kernels)
     missing = [n for n in ("pairwise_sq_dists_kernel", "assign_kernel",
-                           "flash_attention_kernel") if n not in names]
+                           "flash_attention_kernel", "ssd_scan_kernel") if n not in names]
     if missing:
         raise RuntimeError(f"expected {missing} in the build, got {names}")
     return {"seconds": seconds, "kernels": kernels}
@@ -468,6 +497,83 @@ def phase_kernel_k3(torch, smi: str) -> dict:
     return results
 
 
+def ssd_bound(b: int, s: int, h: int, p: int, n: int, with_h0: bool):
+    """(least ms, what bounds it) of the SSD scan at K4's chunk SSD_Q: the
+    f32 operands read once (h0 too, if given) and y and the final state
+    written once at the HBM rate, against the chunked form's operations at
+    the f32 CUDA-core peak (2e-4 is beyond TF32), a multiply-add counted as
+    2.  Per batch row and chunk of q positions, C B^T over its q (q + 1) / 2
+    lower pairs (2 N each; B and C are shared by the heads); per head and
+    chunk, the decay L on those pairs (1 each), the intra-chunk product
+    (2 P each), and the carry-in C h^T and the state update (2 q P N
+    each)."""
+    t_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
+                   + (2 if with_h0 else 1) * b * h * p * n) / HBM_BYTES_PER_S
+    ops = 0.0
+    for s0 in range(0, s, SSD_Q):
+        q = min(SSD_Q, s - s0)
+        pairs = q * (q + 1) / 2
+        ops += b * pairs * 2 * n + b * h * (pairs * (1 + 2 * p) + 4 * q * p * n)
+    t_ops = ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_kernel_k4(torch, smi: str) -> dict:
+    """K4 against ``ssd_ref`` (float32, the plain version; float64 beside
+    it) on the same inputs, drawn as tests/test_kernels.py:87-92 draws
+    them, with times; ``ssd_chunked`` (the wrapper's CPU path) timed on the
+    card too."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.models.ssm import ssd_chunked
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    results, failed = {}, []
+    for (b, s, h, p, n), with_h0 in SSD_SHAPES:
+        x, dt = randn(b, s, h, p), torch.nn.functional.softplus(randn(b, s, h))
+        A = -torch.exp(0.5 * randn(h))
+        Bm, Cm = randn(b, s, n), randn(b, s, n)
+        h0 = randn(b, h, p, n) if with_h0 else None
+        args = (x, dt, A, Bm, Cm)
+        y, hT = ssd_ops.ssd_scan(*args, chunk=SSD_CHUNK, h0=h0)
+        want_y, want_h = ssd_ref(*args, h0)
+        y64, h64 = ssd_ref(*(t.double() for t in args), None if h0 is None else h0.double())
+        torch.cuda.synchronize()
+        ok = bool(torch.allclose(y, want_y, rtol=SSD_TOL, atol=SSD_TOL)
+                  and torch.allclose(hT, want_h, rtol=SSD_TOL, atol=SSD_TOL))
+        bound_ms, by = ssd_bound(b, s, h, p, n, with_h0)
+        row = {"phase": "kernel-K4", "batch": b, "s": s, "h": h, "p": p, "n": n,
+               "h0": with_h0, "dtype": "float32", "ok": ok,
+               "tolerance": {"rtol": SSD_TOL, "atol": SSD_TOL},
+               "max_abs_err": max(float((y - want_y).abs().max()),
+                                  float((hT - want_h).abs().max())),
+               "max_abs_err_f64": max(float((y.double() - y64).abs().max()),
+                                      float((hT.double() - h64).abs().max())),
+               "plain_f32_err_f64": max(float((want_y.double() - y64).abs().max()),
+                                        float((want_h.double() - h64).abs().max())),
+               "max_abs_y": float(want_y.abs().max()),
+               "ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan(*args, chunk=SSD_CHUNK, h0=h0)),
+               "plain_ms": cuda_ms(torch, lambda: ssd_ref(*args, h0), iters=3, warmup=1),
+               "chunked_ms": cuda_ms(torch, lambda: ssd_chunked(*args, SSD_CHUNK, h0),
+                                     iters=5, warmup=1),
+               "library_ms": None, "bound_ms": bound_ms, "bound_by": by, "card": smi}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        emit(row)
+        results[((b, s, h, p, n), with_h0)] = row
+        if not ok:
+            failed.append(((b, s, h, p, n), with_h0))
+        del x, dt, A, Bm, Cm, h0, args, y, hT, want_y, want_h, y64, h64
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K4 disagrees with ssd_ref at {failed}")
+    return results
+
+
 def _greedy_with_logits(torch, M, params, cfg, prompt, n_new):
     """Greedy tokens and the fp32 logits each was chosen from (prefill's
     first), through the model's prefill and decode steps."""
@@ -482,27 +588,27 @@ def _greedy_with_logits(torch, M, params, cfg, prompt, n_new):
     return torch.stack(toks, dim=1).cpu(), steps
 
 
-def phase_lm_parity(torch, smi: str) -> dict:
-    """Full-width Qwen2-0.5B in float32, one weight set: the model on the
-    card (prefill attention = K3) against the same model on the CPU (the
+def phase_lm_parity(torch, smi: str, arch: str, kernel: str,
+                    phase: str = "lm-parity") -> dict:
+    """Full-width ``arch`` in float32, one weight set: the model on the card
+    (its prefill through ``kernel``) against the same model on the CPU (the
     plain versions).  A token mismatch fails unless the CPU's top-2 logit
     gap at that step is under the tolerance (a near tie)."""
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import model as M
 
     torch.backends.cuda.matmul.allow_tf32 = False     # full f32 products, stated
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
     # one generator seed on the card gives both copies the same weights
     params = {d: M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), d)
               for d in (DEVICE, "cpu")}
     prompt = np.random.default_rng([SEED, 3]).integers(0, cfg.vocab_size, (1, PARITY_PROMPT))
-    before = fa_ops.LAUNCHES["flash_attention"]
+    before = launches(kernel)
     with torch.inference_mode():
         gpu_toks, gpu_logits = _greedy_with_logits(
             torch, M, params[DEVICE], cfg, torch.from_numpy(prompt).to(DEVICE), PARITY_NEW)
-        k3_launches = fa_ops.LAUNCHES["flash_attention"] - before
+        kernel_launches = launches(kernel) - before
         cpu_toks, cpu_logits = _greedy_with_logits(
             torch, M, params["cpu"], cfg, torch.from_numpy(prompt), PARITY_NEW)
     gpu_toks, cpu_toks = gpu_toks[0].tolist(), cpu_toks[0].tolist()
@@ -514,31 +620,32 @@ def phase_lm_parity(torch, smi: str) -> dict:
         if a != b:          # later steps see different tokens: stop comparing
             verdict = "near-tie" if gaps[i] < LM_PARITY_TOL else "mismatch"
             break
-    out = {"phase": "lm-parity", "arch": LM_ARCH, "dtype": "float32",
+    out = {"phase": phase, "arch": arch, "dtype": "float32",
            "params": sum(t.numel() for t in params["cpu"].parameters()),
            "prompt": PARITY_PROMPT, "new_tokens": PARITY_NEW, "tolerance": LM_PARITY_TOL,
            "prefill_logits_max_abs_diff": diffs[0], "step_logits_max_abs_diff": diffs,
            "cpu_top2_gaps": gaps, "tokens_card": gpu_toks, "tokens_cpu": cpu_toks,
-           "tokens": verdict, "k3_launches": k3_launches, "card": smi}
+           "tokens": verdict, "launches": {kernel: kernel_launches}, "card": smi}
     out["ok"] = (diffs[0] <= LM_PARITY_TOL and verdict != "mismatch"
-                 and k3_launches == cfg.n_layers and max(diffs) <= LM_PARITY_TOL)
+                 and kernel_launches == cfg.n_layers and max(diffs) <= LM_PARITY_TOL)
     emit(out)
     del params
     torch.cuda.empty_cache()
     if not out["ok"]:
-        raise AssertionError("the model on the card and on the CPU disagree")
+        raise AssertionError(f"{phase}: the model on the card and on the CPU disagree")
     return out
 
 
-def phase_serve(torch, smi: str, params, requests: int = SERVE_REQUESTS,
-                new_tokens: int = SERVE_NEW, phase: str = "serve") -> dict:
-    """The LM serving path at full width in bf16; every count set to 0 just
-    before and read just after."""
+def phase_serve(torch, smi: str, params, arch: str, kernel: str,
+                requests: int = SERVE_REQUESTS, new_tokens: int = SERVE_NEW,
+                phase: str = "serve") -> dict:
+    """The LM serving path of ``arch`` at full width in bf16; every count
+    set to 0 just before and read just after, and ``kernel`` launched at
+    least once per layer and micro-batch."""
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.serve import serve
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     prompts = np.random.default_rng([SEED, 4]).integers(
         0, cfg.vocab_size, (requests, SERVE_PROMPT))
     torch.cuda.synchronize()
@@ -546,11 +653,11 @@ def phase_serve(torch, smi: str, params, requests: int = SERVE_REQUESTS,
     reset_counts()
     res = serve(cfg, params, prompts, new_tokens=new_tokens, partitions=SERVE_PARTITIONS,
                 batch_max=SERVE_BATCH, device=DEVICE)
-    launches = fa_ops.LAUNCHES["flash_attention"]
+    n_launches = launches(kernel)
     peak = torch.cuda.max_memory_allocated()
     lat = [x * 1e3 for x in res.lpx_s]
     n_batches = len(res.batches)
-    out = {"phase": phase, "arch": LM_ARCH, "dtype": cfg.dtype, "requests": requests,
+    out = {"phase": phase, "arch": arch, "dtype": cfg.dtype, "requests": requests,
            "prompt": SERVE_PROMPT, "new_tokens": new_tokens,
            "partitions": SERVE_PARTITIONS, "batch_max": SERVE_BATCH,
            "answered": res.processed, "abandoned": res.abandoned,
@@ -563,7 +670,7 @@ def phase_serve(torch, smi: str, params, requests: int = SERVE_REQUESTS,
            "prefill_ms_per_micro_batch": 1e3 * float(np.mean([p for _, p, _ in res.batches])),
            "decode_ms_per_step": 1e3 * float(np.mean([d for _, _, d in res.batches]))
            / max(1, new_tokens - 1),
-           "launches": {"flash_attention": launches},
+           "launches": {kernel: n_launches},
            "max_memory_allocated_bytes": peak, "card": smi}
     emit(out)
     problems = []
@@ -571,14 +678,16 @@ def phase_serve(torch, smi: str, params, requests: int = SERVE_REQUESTS,
         problems.append(f"answered {res.processed}/{requests}")
     if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
         problems.append("tokens missing or outside the vocabulary")
-    if launches < cfg.n_layers * n_batches:
-        problems.append(f"K3 launched {launches} < {cfg.n_layers} x {n_batches} times")
+    if n_launches < cfg.n_layers * n_batches:
+        problems.append(f"{kernel} launched {n_launches} < {cfg.n_layers} x {n_batches} "
+                        f"times")
     if problems:
         raise AssertionError(f"{phase}: {problems}")
     return out
 
 
-def phase_serve_alone(torch, smi: str, params) -> dict:
+def phase_serve_alone(torch, smi: str, params, arch: str,
+                      phase: str = "serve-alone") -> dict:
     """One micro-batch (SERVE_BATCH prompts of SERVE_PROMPT tokens) through
     prefill and greedy decode in this one thread, with no engine: the
     model's own time, beside which the serve phase's per-step times show
@@ -586,7 +695,7 @@ def phase_serve_alone(torch, smi: str, params) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     prompts = torch.from_numpy(np.random.default_rng([SEED, 5]).integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(DEVICE)
     with torch.inference_mode():
@@ -600,43 +709,50 @@ def phase_serve_alone(torch, smi: str, params) -> dict:
         toks = M.decode_greedy(params, cfg, first, caches, SERVE_PROMPT, SERVE_NEW)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    out = {"phase": "serve-alone", "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+    out = {"phase": phase, "arch": arch, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
            "new_tokens": SERVE_NEW, "prefill_ms": (t1 - t0) * 1e3,
            "decode_ms_per_step": (t2 - t1) * 1e3 / (SERVE_NEW - 1), "card": smi}
     emit(out)
     if tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW):
-        raise AssertionError(f"serve-alone: tokens of shape {tuple(toks.shape)}")
+        raise AssertionError(f"{phase}: tokens of shape {tuple(toks.shape)}")
     return out
 
 
-def serve_params(torch):
-    """Full-width Qwen2-0.5B weights in bf16, drawn on the card from SEED."""
+def serve_params(torch, arch: str):
+    """Full-width ``arch`` weights in bf16, drawn on the card from SEED."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
 
-    return M.init_params(get_config(LM_ARCH),
+    return M.init_params(get_config(arch),
                          torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
 
 
-def phase_serve_profile(torch, smi: str, params) -> dict:
+def phase_serve_profile(torch, smi: str, params, arch: str, kernel: str,
+                        phase: str = "serve-profile",
+                        serve_phase: str = "profiled-serve") -> dict:
     """Where the time of the serving path goes: a shorter serve run under
-    ``torch.profiler``; device time by kernel, host self time by op, and the
-    busy share = summed device self time over the run's wall time."""
+    ``torch.profiler``; device time by kernel (``kernel``'s and the matrix
+    products' summed), host self time by op, and the busy share = summed
+    device self time over the run's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run = phase_serve(torch, smi, params, PROFILE_REQUESTS, PROFILE_NEW,
-                          "profiled-serve")
+        run = phase_serve(torch, smi, params, arch, kernel, PROFILE_REQUESTS, PROFILE_NEW,
+                          serve_phase)
     rows = device_time_rows(prof)
     device_ms = sum(r["device_ms"] for r in rows)
-    k3_ms = sum(r["device_ms"] for r in rows if "flash_attention_kernel" in r["name"])
+    kernel_ms = sum(r["device_ms"] for r in rows if f"{kernel}_kernel" in r["name"])
+    gemm_ms = sum(r["device_ms"] for r in rows
+                  if re.search(r"gemm|gemv|nvjet|xmma|cutlass", r["name"], re.I))
     host = sorted(prof.key_averages(), key=lambda ev: -ev.self_cpu_time_total)
     wall_ms = run["wall_s"] * 1e3
-    out = {"phase": "serve-profile", "requests": PROFILE_REQUESTS,
+    measured = bool(rows)
+    out = {"phase": phase, "arch": arch, "requests": PROFILE_REQUESTS,
            "new_tokens": PROFILE_NEW, "wall_ms": wall_ms,
-           "device_ms": device_ms if rows else "not measured",
-           "device_busy_share": device_ms / wall_ms if rows else "not measured",
-           "k3_device_ms": k3_ms if rows else "not measured",
+           "device_ms": device_ms if measured else "not measured",
+           "device_busy_share": device_ms / wall_ms if measured else "not measured",
+           f"{kernel}_device_ms": kernel_ms if measured else "not measured",
+           "matmul_device_ms": gemm_ms if measured else "not measured",
            "top": rows[:16],
            "top_host": [{"name": ev.key[:96], "calls": ev.count,
                          "host_self_ms": ev.self_cpu_time_total / 1e3} for ev in host[:12]],
@@ -682,14 +798,31 @@ def main() -> int:
     streams = {k: run(f"stream-{k}", phase_stream, torch, k, device["nvidia_smi"])
                for k in MODEL_SIZES}
     run("profile", phase_profile, torch, device["nvidia_smi"])
-    k3 = run("kernel-K3", phase_kernel_k3, torch, device["nvidia_smi"])
-    run("lm-parity", phase_lm_parity, torch, device["nvidia_smi"])
-    lm_params = run("lm-init", serve_params, torch)
-    serving = None
-    if lm_params is not None:
-        run("serve-alone", phase_serve_alone, torch, device["nvidia_smi"], lm_params)
-        serving = run("serve", phase_serve, torch, device["nvidia_smi"], lm_params)
-        run("serve-profile", phase_serve_profile, torch, device["nvidia_smi"], lm_params)
+    smi = device["nvidia_smi"]
+
+    def serving_path(arch: str, kernel: str, suffix: str):
+        """Weights, then serve-alone, serve and a profiled serve of ``arch``;
+        the serve phase's result."""
+        params = run(f"lm-init{suffix}", serve_params, torch, arch)
+        if params is None:
+            return None
+        run(f"serve-alone{suffix}", phase_serve_alone, torch, smi, params, arch,
+            f"serve-alone{suffix}")
+        out = run(f"serve{suffix}", phase_serve, torch, smi, params, arch, kernel,
+                  SERVE_REQUESTS, SERVE_NEW, f"serve{suffix}")
+        run(f"serve-profile{suffix}", phase_serve_profile, torch, smi, params, arch, kernel,
+            f"serve-profile{suffix}", f"profiled-serve{suffix}")
+        del params
+        torch.cuda.empty_cache()
+        return out
+
+    k3 = run("kernel-K3", phase_kernel_k3, torch, smi)
+    run("lm-parity", phase_lm_parity, torch, smi, DENSE_ARCH, "flash_attention")
+    serving = {"flash_attention": serving_path(DENSE_ARCH, "flash_attention", "")}
+    k4 = run("kernel-K4", phase_kernel_k4, torch, smi)
+    run("lm-parity-mamba", phase_lm_parity, torch, smi, SSM_ARCH, "ssd_scan",
+        "lm-parity-mamba")
+    serving["ssd_scan"] = serving_path(SSM_ARCH, "ssd_scan", "-mamba")
     emit({"phase": "seconds", **seconds})
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -711,11 +844,20 @@ def main() -> int:
     bh, bkv, s, dh = FA_SERVING
     summary.append({
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
-        "replaces": FA_REPLACES, "launches": serving["launches"]["flash_attention"],
+        "replaces": FA_REPLACES, "launches": serving["flash_attention"]["launches"][
+            "flash_attention"],
         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "f32_core_ms": row["f32_core_ms"],
         "shape": {"bh": bh, "bkv": bkv, "s": s, "dh": dh, "dtype": "bfloat16"}})
+    row = k4[(SSD_SERVING, False)]
+    summary.append({
+        "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+        "launches": serving["ssd_scan"]["launches"]["ssd_scan"],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "chunked_ms": row["chunked_ms"],
+        "shape": dict(zip(("batch", "s", "h", "p", "n"), SSD_SERVING), dtype="float32")})
     emit({"kernels": summary})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"],

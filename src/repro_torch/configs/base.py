@@ -7,9 +7,9 @@ registered architecture has an exact published ``ModelConfig`` plus a
 ``reduced()`` variant for CPU tests.
 
 Only the configurations the port can run are loaded (``_ensure_loaded``):
-``qwen2-0.5b`` so far.  The mesh-padding fields and ``pad_for_mesh`` come
-with the multi-device slice, and the reference's shape set and its helpers
-with the code that reads them.
+``qwen2-0.5b`` and ``mamba2-130m`` so far.  The mesh-padding fields and
+``pad_for_mesh`` come with the multi-device slice, and the reference's
+shape set and its helpers with the code that reads them.
 """
 
 from __future__ import annotations
@@ -136,4 +136,4 @@ def reduced(name: str) -> ModelConfig:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from repro_torch.configs import qwen2_0_5b  # noqa: F401
+    from repro_torch.configs import mamba2_130m, qwen2_0_5b  # noqa: F401

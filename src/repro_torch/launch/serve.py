@@ -4,13 +4,20 @@ to LM inference, on one torch device.
 Ports ``repro.launch.serve``.  Requests arrive as broker messages; the
 engine micro-batches up to ``batch_max`` of them per partition, and each
 micro-batch runs prefill plus greedy decode as a compute-unit on a
-``torch://`` pilot.  The prefill's attention is kernel K3 on the card.  The
-model is read-only and every micro-batch makes its own KV caches, so the
-consumer threads share it without a lock.
+``torch://`` pilot.  On the card the prefill runs kernel K3 as its
+attention (the dense family, ``--arch qwen2-0.5b``) or kernel K4 as its SSD
+scan (the SSM family, ``--arch mamba2-130m``).  The model is read-only and
+every micro-batch makes its own caches (K/V or SSM state), so the consumer
+threads share it without a lock.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduced --device cpu \\
+        --prompt-len 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 32 \\
         --prompt-len 1024 --new-tokens 32 --batch-max 4      # full width, on the card
+
+A Mamba-2 prompt is at most the config's SSD chunk long or a multiple of it
+(the reference's contract).
 """
 
 from __future__ import annotations

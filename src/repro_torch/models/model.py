@@ -1,7 +1,7 @@
 """Language-model API for serving: init, forward, prefill, decode, generate.
 
-Ports ``repro.models.model`` for the dense family on one device.  The
-parameters are an ``nn.ModuleDict`` laid out as the reference's tree
+Ports ``repro.models.model`` for the dense and SSM families on one device.
+The parameters are an ``nn.ModuleDict`` laid out as the reference's tree
 (``params["embedding"]["tokens"]``, ``params["final_norm"]["scale"]``),
 except that ``params["stack"]`` is an ``nn.ModuleList`` of per-layer
 blocks in layer order instead of groups stacked along a leading axis.
@@ -56,17 +56,22 @@ def params_from_numpy(cfg, tree, device="cuda") -> nn.ModuleDict:
     """The port's parameters from the reference's tree of numpy arrays,
     ``jax.tree.map(np.asarray, repro.models.model.init_params(key, cfg))``.
     ``stack.groups`` (leading ``n_groups`` axis) is unstacked into one block
-    per layer, then the tail; values are cast to ``cfg.dtype`` (exact for a
-    tree in that dtype)."""
+    per layer, then the tail.  An array the tree holds in float32 stays
+    float32 (the SSM's ``A_log``, ``D`` and ``dt_bias`` in every model
+    dtype); the rest are cast to ``cfg.dtype`` (exact for a tree in that
+    dtype)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
 
+    def tensor(a):
+        keep = a.dtype == np.float32
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            device=dev, dtype=torch.float32 if keep else dtype)
+
     def tensors(group, index=None):
-        return param_dict({
-            name: torch.from_numpy(np.array(a if index is None else a[index],
-                                            np.float32)).to(device=dev, dtype=dtype)
-            for name, a in group.items()})
+        return param_dict({name: tensor(a if index is None else a[index])
+                           for name, a in group.items()})
 
     def block(kind, p, index=None):
         return tf.Block(kind, {name: tensors(group, index) for name, group in p.items()})

@@ -152,3 +152,89 @@ def test_attend_launches_the_kernel_once_per_layer(device):
     torch.cuda.synchronize()
     assert fa_ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
     assert logits.shape == (2, 40, cfg.vocab_size) and torch.isfinite(logits).all()
+
+
+# -- K4 ssd_scan -------------------------------------------------------------
+
+SSD_TOL = 2e-4                                           # tests/test_kernels.py:96-99's
+
+
+def _ssd_inputs(b, s, h, p, n, device, seed=0, with_h0=False):
+    """Drawn as tests/test_kernels.py:87-92 draws them."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, s, h, p), dtype=np.float32),
+              np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32),
+              -np.exp(0.5 * rng.standard_normal(h)).astype(np.float32),
+              rng.standard_normal((b, s, n), dtype=np.float32),
+              rng.standard_normal((b, s, n), dtype=np.float32)]
+    if with_h0:
+        arrays.append(rng.standard_normal((b, h, p, n), dtype=np.float32))
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+# (b, s, h, p, n, chunk, h0): the Mamba2-130M serving shape, a ragged S
+# against the kernel's 64-position chunk, h0 given, P/N/H off the tiles
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", [
+    (4, 1024, 24, 64, 128, 256, False), (1, 100, 24, 64, 128, 256, False),
+    (2, 256, 3, 64, 128, 256, True), (2, 100, 5, 20, 33, 100, True),
+    (1, 1, 1, 1, 1, 1, False), (3, 192, 7, 48, 16, 64, False),
+    (1, 130, 2, 16, 256, 130, True)])
+def test_ssd_scan_kernel_matches_plain(device, b, s, h, p, n, chunk, with_h0):
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+    x, dt, A, Bm, Cm, *h0 = _ssd_inputs(b, s, h, p, n, device, with_h0=with_h0)
+    h0 = h0[0] if h0 else None
+    before = ssd_ops.LAUNCHES["ssd_scan"]
+    y, hT = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd_scan"] == before + 1
+    assert y.shape == x.shape and hT.shape == (b, h, p, n) and y.dtype == torch.float32
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, h0)
+    torch.testing.assert_close(y, want_y, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(hT, want_h, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_scan_kernel_keeps_digits_where_heads_decay_fast(device):
+    """A = -4 exp(0.5 normal): running sums of dt·A reach -1,000 within a
+    chunk, where decays formed as differences of running sums lose digits;
+    held against the float64 recurrence."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+    x, dt, A, Bm, Cm = _ssd_inputs(4, 1024, 24, 64, 128, device, seed=3)
+    A = 4 * A
+    y, hT = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    want_y, want_h = ssd_ref(*(t.double() for t in (x, dt, A, Bm, Cm)))
+    torch.testing.assert_close(y.double(), want_y, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(hT.double(), want_h, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_scan_wrapper_rejects_what_the_kernel_does_not_take(device):
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    x, dt, A, Bm, Cm = _ssd_inputs(2, 64, 3, 16, 8, device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm,
+                         chunk=64)
+    with pytest.raises(ValueError, match="operands on"):
+        ssd_ops.ssd_scan(x, dt, A.cpu(), Bm, Cm, chunk=64)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=48)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_scan(x.bfloat16(), dt, A, Bm, Cm, chunk=64)
+
+
+def test_mamba_forward_launches_the_kernel_once_per_layer(device):
+    from repro_torch.configs.base import reduced
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import model as M
+
+    cfg = reduced("mamba2-130m")
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48), device=device)
+    before = ssd_ops.LAUNCHES["ssd_scan"]
+    logits = M.forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd_scan"] == before + cfg.n_layers
+    assert logits.shape == (2, 48, cfg.vocab_size) and torch.isfinite(logits).all()

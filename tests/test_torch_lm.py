@@ -151,7 +151,7 @@ def test_init_params_has_the_reference_layout(f32):
     assert out.shape == (2, 4) and bool(((out >= 0) & (out < tcfg.vocab_size)).all())
 
 
-@pytest.mark.parametrize("kind", ["ssm", "rglru", "local_attn", "moe"])
+@pytest.mark.parametrize("kind", ["rglru", "local_attn", "moe"])
 def test_unported_block_kinds_raise(kind):
     _, tcfg = _cfgs("float32")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

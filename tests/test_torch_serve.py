@@ -1,8 +1,9 @@
 """The port's serving path end to end on the CPU: requests -> Broker ->
 ThreadedStreamingEngine -> ``torch://`` pilot -> greedy generation, with
-the reduced ``qwen2-0.5b`` in float32.  Micro-batching must not change what
-a request gets: each request's tokens equal ``greedy_generate`` on its own
-prompt (float32, so batched and single-row sums cannot flip an argmax)."""
+the reduced ``qwen2-0.5b`` and ``mamba2-130m`` in float32.  Micro-batching
+must not change what a request gets: each request's tokens equal
+``greedy_generate`` on its own prompt (float32, so batched and single-row
+sums cannot flip an argmax)."""
 
 import dataclasses
 
@@ -17,16 +18,19 @@ from repro_torch.models import model as M
 N_REQ, PROMPT, NEW = 6, 20, 5
 
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg = dataclasses.replace(reduced("qwen2-0.5b"), dtype="float32")
+def _setup(arch, prompt_len):
+    cfg = dataclasses.replace(reduced(arch), dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (N_REQ, PROMPT))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (N_REQ, prompt_len))
     return cfg, params, prompts
 
 
-def test_serve_answers_every_request_as_greedy_generate(setup):
-    cfg, params, prompts = setup
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("qwen2-0.5b", PROMPT)
+
+
+def _check_served(cfg, params, prompts):
     res = S.serve(cfg, params, prompts, new_tokens=NEW, partitions=2, batch_max=2,
                   device="cpu", timeout=120)
     assert (res.processed, res.abandoned, res.failed_batches) == (N_REQ, 0, 0)
@@ -39,9 +43,27 @@ def test_serve_answers_every_request_as_greedy_generate(setup):
         np.testing.assert_array_equal(res.tokens[i], alone[0].numpy())
 
 
+def test_serve_answers_every_request_as_greedy_generate(setup):
+    _check_served(*setup)
+
+
+def test_serve_mamba_answers_every_request_as_greedy_generate():
+    """The SSM family through the same path; a prompt of two reduced chunks."""
+    cfg, params, prompts = _setup("mamba2-130m", 32)
+    assert cfg.layer_kinds == ("ssm",) * cfg.n_layers
+    _check_served(cfg, params, prompts)
+
+
 def test_serve_cli_runs_reduced_on_the_cpu(capsys):
     S.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu", "--requests", "4",
             "--prompt-len", "8", "--new-tokens", "3", "--batch-max", "2"])
+    out = capsys.readouterr().out
+    assert "served 4/4 requests" in out and "retries=0 failed=0" in out
+
+
+def test_serve_cli_runs_reduced_mamba_on_the_cpu(capsys):
+    S.main(["--arch", "mamba2-130m", "--reduced", "--device", "cpu", "--requests", "4",
+            "--prompt-len", "16", "--new-tokens", "3", "--batch-max", "2"])
     out = capsys.readouterr().out
     assert "served 4/4 requests" in out and "retries=0 failed=0" in out
 
