@@ -19,9 +19,10 @@ Phases, each printing JSON lines on standard output:
   1,024 and 8,192 centroids, 200 messages of 16,000 x 9 points each;
 * ``profile`` — a shorter stream run under ``torch.profiler``: device time
   by kernel and the device's busy share;
-* ``kernel-K3`` — kernel K3 (``flash_attention``) held against its plain
-  version ``mha_ref`` at the serving shape of Qwen2-0.5B (bf16 and f32)
-  and a ragged one, with CUDA-event times beside the bound and SDPA;
+* ``kernel-K3`` — kernel K3 (``flash_attention``: bf16 on the tensor cores,
+  f32 on the CUDA cores) held against its plain version ``mha_ref`` at the
+  serving shape of Qwen2-0.5B (bf16 and f32) and a ragged one, with
+  CUDA-event times beside the bound and SDPA;
 * ``lm-parity`` — full-width Qwen2-0.5B in float32: prefill logits and
   greedy tokens of the model on the card (through K3) against the same
   model on the CPU (plain versions);
@@ -86,11 +87,15 @@ FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:77"
 FA_SERVING = (4 * 14, 4 * 2, 1_024, 64)          # (BH, BKV, S, Dh) of a 4 x 1,024 prefill
 FA_SHAPES = [FA_SERVING + ("bfloat16",), FA_SERVING + ("float32",),
              (6, 3, 1_000, 40, "float32"), (6, 3, 1_000, 40, "bfloat16")]
-# f32: tests/test_kernels.py:64's 2e-5.  bf16: K3 and mha_ref both compute in
-# f32 from the same bf16 inputs and round the output to bf16 once, so they
-# may differ by one bf16 step (2**-7 of the value) where the f32 results
-# straddle a rounding boundary; atol covers their ~1e-6 f32 differences
-# near 0.  Tighter than the CPU parity test's 3e-2 against JAX.
+# f32: tests/test_kernels.py:64's 2e-5 (K3's f32 kernel runs on the CUDA
+# cores in f32).  bf16: K3 multiplies the bf16 inputs exactly on the tensor
+# cores with f32 sums, and splits P into two bf16 parts (hi and lo) for PV,
+# which keeps ~16 bits of each probability, so it and mha_ref both compute in
+# f32 up to summation order and round the output to bf16 once: they may
+# differ by one bf16 step (2**-7 of the value) where the f32 results straddle
+# a rounding boundary; atol covers their ~1e-5 f32 differences near 0.  A
+# single bf16 P (~2**-9 per probability) was not what this was set for.
+# Tighter than the CPU parity test's 3e-2 against JAX.
 FA_TOLERANCE = {"float32": {"rtol": 2e-5, "atol": 2e-5},
                 "bfloat16": {"rtol": 8e-3, "atol": 1e-4}}
 BF16_OPS_PER_S = 989e12                           # H100 SXM dense bf16 tensor cores
@@ -210,7 +215,7 @@ def phase_device(torch) -> dict:
     return info
 
 
-def phase_build() -> dict:
+def phase_build(torch) -> dict:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -239,12 +244,15 @@ def phase_build() -> dict:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     emit({"phase": "build", "kernel": "flash_attention",
-          "dynamic_smem_bytes": {f"dh{dh}": fa_ops.smem_bytes(dh) for dh in (40, 64, 128)}})
+          "dynamic_smem_bytes": {
+              name: {f"dh{dh}": fa_ops.smem_bytes(dh, dtype=getattr(torch, name))
+                     for dh in (40, 64, 128)} for name in ("float32", "bfloat16")}})
     emit({"phase": "build", "kernel": "ssd_scan",
           "dynamic_smem_bytes": {f"n{n}": ssd_ops.smem_bytes(n) for n in (16, 128, 256)}})
     names = " ".join(k["symbol"] for k in kernels)
     missing = [n for n in ("pairwise_sq_dists_kernel", "assign_kernel",
-                           "flash_attention_kernel", "ssd_scan_kernel") if n not in names]
+                           "flash_attention_kernel", "flash_attention_bf16_kernel",
+                           "ssd_scan_kernel") if n not in names]
     if missing:
         raise RuntimeError(f"expected {missing} in the build, got {names}")
     return {"seconds": seconds, "kernels": kernels}
@@ -423,9 +431,16 @@ def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES
 
 
 def device_time_rows(prof) -> list[dict]:
-    """Device self time by kernel from a ``torch.profiler`` run, largest first."""
+    """Device self time by kernel (and memcpy/memset) from a ``torch.profiler``
+    run, largest first.  Only device-side events count: a CPU op's row also
+    carries the device time of the kernels it launched, and summing both
+    would count that time twice."""
+    from torch.autograd import DeviceType
+
     rows = []
     for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU:
+            continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
@@ -433,6 +448,24 @@ def device_time_rows(prof) -> list[dict]:
             rows.append({"name": ev.key[:96], "calls": ev.count, "device_ms": us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     return rows
+
+
+def kernel_device_ms(rows: list[dict], kernel: str) -> float:
+    """Summed device time of the rows that are kernels of the wrapper
+    ``kernel`` (``flash_attention`` has ``flash_attention_kernel`` for f32 and
+    ``flash_attention_bf16_kernel`` for bf16)."""
+    return sum(r["device_ms"] for r in rows
+               if re.search(rf"\b{kernel}(_\w+)?_kernel\b", r["name"]))
+
+
+def busy_share(device_ms: float, wall_ms: float) -> float:
+    """Summed device time over wall time.  Every kernel of the port runs on
+    one stream, so a share above 1 means the rows counted time twice."""
+    share = device_ms / wall_ms
+    if share > 1:
+        raise AssertionError(f"{device_ms} ms of device time in {wall_ms} ms of wall "
+                             f"time on one stream: the profile counted time twice")
+    return share
 
 
 def phase_profile(torch, smi: str) -> dict:
@@ -449,7 +482,8 @@ def phase_profile(torch, smi: str) -> dict:
     out = {"phase": "profile", "centroids": MODEL_SIZES[0], "messages": PROFILE_MESSAGES,
            "wall_ms": run["wall_s"] * 1e3,
            "device_ms": device_ms if rows else "not measured",
-           "device_busy_share": device_ms / (run["wall_s"] * 1e3) if rows else "not measured",
+           "device_busy_share": busy_share(device_ms, run["wall_s"] * 1e3) if rows
+           else "not measured",
            "top": rows[:12], "card": smi}
     emit(out)
     return out
@@ -741,7 +775,7 @@ def phase_serve_profile(torch, smi: str, params, arch: str, kernel: str,
                           serve_phase)
     rows = device_time_rows(prof)
     device_ms = sum(r["device_ms"] for r in rows)
-    kernel_ms = sum(r["device_ms"] for r in rows if f"{kernel}_kernel" in r["name"])
+    kernel_ms = kernel_device_ms(rows, kernel)
     gemm_ms = sum(r["device_ms"] for r in rows
                   if re.search(r"gemm|gemv|nvjet|xmma|cutlass", r["name"], re.I))
     host = sorted(prof.key_averages(), key=lambda ev: -ev.self_cpu_time_total)
@@ -750,7 +784,7 @@ def phase_serve_profile(torch, smi: str, params, arch: str, kernel: str,
     out = {"phase": phase, "arch": arch, "requests": PROFILE_REQUESTS,
            "new_tokens": PROFILE_NEW, "wall_ms": wall_ms,
            "device_ms": device_ms if measured else "not measured",
-           "device_busy_share": device_ms / wall_ms if measured else "not measured",
+           "device_busy_share": busy_share(device_ms, wall_ms) if measured else "not measured",
            f"{kernel}_device_ms": kernel_ms if measured else "not measured",
            "matmul_device_ms": gemm_ms if measured else "not measured",
            "top": rows[:16],
@@ -791,7 +825,7 @@ def main() -> int:
     device = run("device", phase_device, torch)
     if device is None:
         return 1
-    if run("build", phase_build) is None:
+    if run("build", phase_build, torch) is None:
         return 1
     kernels = run("kernel", phase_kernels, torch)
     run("parity", phase_parity, torch)

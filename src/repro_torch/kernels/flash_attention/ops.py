@@ -28,7 +28,8 @@ LAUNCHES = {"flash_attention": 0}
 MAX_HEAD_DIM = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_ROWS = 65535               # the kernel's grid.y limit (q rows BH)
+_MAX_GRID_Y = 65535             # CUDA's grid.y limit
+_BQ = 64                        # query rows per block, both kernels
 _lib: ctypes.CDLL | None = None
 
 
@@ -39,7 +40,7 @@ def _kernels() -> ctypes.CDLL:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.fa_forward.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, i, ptr]
         lib.fa_forward.restype = ctypes.c_int
-        lib.fa_smem_bytes.argtypes = [i]
+        lib.fa_smem_bytes.argtypes = [i, i]
         lib.fa_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -75,15 +76,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Causal GQA attention: q (BH, S, Dh); k, v (BKV, S, Dh), contiguous,
     with BH = BKV·G; q row b reads kv row b // G.  Returns (BH, S, Dh) in q's
-    dtype, computed in fp32."""
+    dtype.  On the card, f32 inputs are computed in f32 on the CUDA cores;
+    bf16 inputs with f32 accumulation and bf16 tensor-core products, with P
+    split hi/lo so that the PV product keeps ~16 bits of each probability."""
     _check(q, k, v, causal)
     if q.device.type == "cpu":
         return mha_ref(q, k, v, causal=True)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {q.device}")
     bh, s, dh = q.shape
-    if bh > _MAX_ROWS:
-        raise ValueError(f"BH={bh} exceeds the kernel's grid ({_MAX_ROWS})")
+    # grid.y: the q rows BH for the f32 kernel, the 64-query tiles for bf16
+    if q.dtype == torch.float32 and bh > _MAX_GRID_Y:
+        raise ValueError(f"BH={bh} exceeds the f32 kernel's grid ({_MAX_GRID_Y})")
+    if q.dtype == torch.bfloat16 and -(-s // _BQ) > _MAX_GRID_Y:
+        raise ValueError(f"S={s} exceeds the bf16 kernel's grid "
+                         f"({_MAX_GRID_Y} tiles of {_BQ})")
     out = torch.empty_like(q)
     err = _kernels().fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, k.shape[0],
@@ -95,7 +102,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def smem_bytes(dh: int) -> int:
-    """Dynamic shared memory of one kernel block at head dim ``dh``, in
-    bytes (as the kernel's source computes it)."""
-    return _kernels().fa_smem_bytes(dh)
+def smem_bytes(dh: int, *, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one kernel block at head dim ``dh`` for
+    inputs of ``dtype``, in bytes (as the kernel's source computes it: the
+    f32 and bf16 kernels stage their tiles differently)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"no kernel for {dtype}; expected float32 or bfloat16")
+    return _kernels().fa_smem_bytes(dh, _DTYPE_CODES[dtype])

@@ -10,6 +10,8 @@ S that the reference pads and the port does not.  Tolerances are
 is rounded to bfloat16 in both packages, at different points).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +20,7 @@ import torch
 from repro.kernels.flash_attention import ops as jax_ops
 from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels.flash_attention.ref import NEG_INF, mha_ref
 
 SHAPES = [(4, 4, 128, 64), (8, 2, 256, 64), (2, 1, 64, 128), (6, 3, 96, 40),
           (14, 2, 48, 64), (6, 3, 100, 40)]
@@ -81,6 +83,53 @@ def test_wrapper_checks_what_the_kernel_takes():
         ops.flash_attention(q, k, v, causal=False)
     with pytest.raises(ValueError, match="no kernel"):
         ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def test_smem_bytes_takes_only_the_kernels_dtypes():
+    with pytest.raises(TypeError, match="float16"):
+        ops.smem_bytes(64, dtype=torch.float16)
+
+
+# chip_smoke.py's FA_TOLERANCE["bfloat16"], which the card's bf16 kernel meets
+FA_BF16_TIGHT = {"rtol": 8e-3, "atol": 1e-4}
+
+
+def _bf16_kernel_arithmetic(q, k, v, split_p):
+    """The bf16 kernel's arithmetic on the CPU: f32 scores from the bf16
+    inputs (their products are exact in f32), P = exp(S - row max) in f32,
+    l summed from that P, and O from P's bf16 parts (hi and lo with
+    ``split_p``, hi alone without) times V, summed in f32.  One row max in
+    place of the kernel's running one: rescaling by exp(m_old - m_new)
+    leaves P's relative rounding as it is."""
+    bh, s, dh = q.shape
+    g = bh // k.shape[0]
+    kf, vf = (x.float().repeat_interleave(g, dim=0) for x in (k, v))
+    scores = torch.bmm(q.float(), kf.transpose(1, 2)) * (1.0 / math.sqrt(dh))
+    causal = torch.ones((s, s), dtype=torch.bool).tril()
+    scores = torch.where(causal, scores, torch.full_like(scores, NEG_INF))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    hi = p.bfloat16().float()
+    o = torch.bmm(hi, vf)
+    if split_p:
+        o = o + torch.bmm((p - hi).bfloat16().float(), vf)
+    return (o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).bfloat16()
+
+
+def test_p_split_is_what_keeps_the_bf16_kernel_within_its_tolerance():
+    """Why the bf16 kernel splits P into two bf16 parts for PV: with the
+    split its arithmetic meets FA_BF16_TIGHT against ``mha_ref`` at every
+    output; a single bf16 P (~2**-9 of each probability) misses it at a
+    share of them, mostly outputs near 0, where only atol holds."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(14, 2, 512, 64, seed=3))
+    want = mha_ref(q, k, v).float()
+
+    def misses(split_p):
+        got = _bf16_kernel_arithmetic(q, k, v, split_p).float()
+        bound = FA_BF16_TIGHT["atol"] + FA_BF16_TIGHT["rtol"] * want.abs()
+        return int(((got - want).abs() > bound).sum())
+
+    assert misses(split_p=True) == 0
+    assert misses(split_p=False) > want.numel() // 100
 
 
 def test_cuda_request_without_a_card_raises():

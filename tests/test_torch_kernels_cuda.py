@@ -128,6 +128,58 @@ def test_flash_attention_kernel_matches_plain(device, bh, bkv, s, dh, dtype):
     torch.testing.assert_close(got.float(), mha_ref(q, k, v).float(), rtol=tol, atol=tol)
 
 
+# chip_smoke.py's FA_TOLERANCE["bfloat16"]: one bf16 step of the value, since
+# K3's bf16 kernel keeps f32 accuracy (exact bf16 products, f32 sums, P split
+# hi/lo) and it and mha_ref each round to bf16 once
+FA_BF16_TIGHT = {"rtol": 8e-3, "atol": 1e-4}
+
+
+@pytest.mark.parametrize("qk_scale", [1.0, 8.0], ids=["unit", "scores-to-60"])
+def test_flash_attention_bf16_keeps_f32_accuracy_at_the_serving_shape(device, qk_scale):
+    """Qwen2-0.5B's prefill shape (BH 56, BKV 8, S 1,024, Dh 64).  With q and k
+    scaled x8 the scores spread to tens (standard deviation 64), so the
+    running max moves from tile to tile and the online softmax rescales the
+    accumulator across tiles."""
+    q, k, v = _qkv(56, 8, 1024, 64, torch.float32, device, seed=1)
+    q, k, v = (q * qk_scale).bfloat16(), (k * qk_scale).bfloat16(), v.bfloat16()
+    got = fa_ops.flash_attention(q, k, v)
+    want = mha_ref(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **FA_BF16_TIGHT)
+
+
+def test_flash_attention_bf16_takes_rows_off_16_byte_alignment(device):
+    """q one element into its storage: its rows are not 16-byte aligned, so
+    the kernel stages with plain loads instead of cp.async."""
+    q, k, v = _qkv(4, 2, 100, 64, torch.bfloat16, device, seed=2)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=device)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    got = fa_ops.flash_attention(shifted, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), mha_ref(q, k, v).float(), **FA_BF16_TIGHT)
+
+
+def test_flash_attention_smem_bytes_by_dtype(device):
+    """The f32 kernel stages f32 tiles with a one-float row pad; the bf16
+    kernel five bf16 tiles of Dh rounded up to 16, plus 8."""
+    assert fa_ops.smem_bytes(64, dtype=torch.float32) == (192 * 65 + 64 * 65) * 4
+    assert fa_ops.smem_bytes(64, dtype=torch.bfloat16) == 320 * 72 * 2
+    assert fa_ops.smem_bytes(40, dtype=torch.bfloat16) == 320 * 56 * 2
+    assert fa_ops.smem_bytes(128, dtype=torch.bfloat16) == 320 * 136 * 2
+
+
+def test_flash_attention_grid_limit_is_by_dtype(device):
+    """The f32 kernel puts the q rows BH on grid.y (at most 65,535), the bf16
+    kernel its 64-query tiles: bf16 takes BH 65,536, f32 refuses it."""
+    q, k, v = _qkv(65_536, 8_192, 16, 8, torch.bfloat16, device, seed=3)
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), mha_ref(q, k, v).float(), **FA_BF16_TIGHT)
+    with pytest.raises(ValueError, match="BH=65536"):
+        fa_ops.flash_attention(q.float(), k.float(), v.float())
+
+
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(device):
     q, k, v = _qkv(4, 2, 64, 64, torch.float32, device)
     with pytest.raises(ValueError, match="contiguous"):
