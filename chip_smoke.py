@@ -32,10 +32,13 @@ Phases, each printing JSON lines on standard output:
 * ``serve-alone`` — one such micro-batch generated in the main thread,
   without the engine, for comparison;
 * ``serve-profile`` — a shorter serve run under ``torch.profiler``;
-* ``kernel-K4`` — kernel K4 (``ssd_scan``) held against its plain version
-  ``ssd_ref`` (and a float64 run of it) at the prefill shape of
-  Mamba2-130M, a ragged length and with an initial state, with CUDA-event
-  times beside the bound;
+* ``kernel-K4`` — kernel K4 (``ssd_scan``, three CUDA kernels a call) held
+  against its plain version ``ssd_ref`` (and a float64 run of it) at the
+  prefill shape of Mamba2-130M, a ragged length, with an initial state, and
+  across several spans with a ragged last one and an initial state, with
+  CUDA-event times beside the bound and the worst error's share of the
+  tolerance; at the prefill shape also each of its CUDA kernels' device
+  time;
 * ``lm-parity-mamba``, ``serve-alone-mamba``, ``serve-mamba`` and
   ``serve-profile-mamba`` — the same four phases for full-width
   Mamba2-130M, whose prefill runs K4;
@@ -99,6 +102,7 @@ FA_SHAPES = [FA_SERVING + ("bfloat16",), FA_SERVING + ("float32",),
 FA_TOLERANCE = {"float32": {"rtol": 2e-5, "atol": 2e-5},
                 "bfloat16": {"rtol": 8e-3, "atol": 1e-4}}
 BF16_OPS_PER_S = 989e12                           # H100 SXM dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12                           # H100 SXM dense TF32 tensor cores
 PARITY_PROMPT, PARITY_NEW = 100, 8                # ragged against K3's 64-row tile
 # f32 on card and CPU sum in other orders (and K3's online softmax against
 # mha_ref's) through 24 layers; random-weight logits are O(1)
@@ -113,7 +117,8 @@ SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:75"
 SSD_Q = 64                                        # K4's own chunk length
 SSD_SERVING = (4, 1_024, 24, 64, 128)             # (batch, S, H, P, N) of a 4 x 1,024 prefill
 SSD_SHAPES = [(SSD_SERVING, False), ((1, 100, 24, 64, 128), False),
-              ((2, 256, 24, 64, 128), True)]      # ragged against SSD_Q; with h0
+              ((2, 256, 24, 64, 128), True),      # ragged against SSD_Q; with h0
+              ((2, 700, 24, 64, 128), True)]      # 2 x 256 + 188: spans, ragged, h0
 SSD_CHUNK = 256                                   # Mamba2-130M's ssm_chunk
 SSD_TOL = 2e-4                                    # tests/test_kernels.py:96-99's
 
@@ -252,7 +257,8 @@ def phase_build(torch) -> dict:
     names = " ".join(k["symbol"] for k in kernels)
     missing = [n for n in ("pairwise_sq_dists_kernel", "assign_kernel",
                            "flash_attention_kernel", "flash_attention_bf16_kernel",
-                           "ssd_scan_kernel") if n not in names]
+                           *(f"ssd_scan_{p}_kernel" for p in ssd_ops.PHASES))
+               if n not in names]
     if missing:
         raise RuntimeError(f"expected {missing} in the build, got {names}")
     return {"seconds": seconds, "kernels": kernels}
@@ -532,24 +538,51 @@ def phase_kernel_k3(torch, smi: str) -> dict:
 
 
 def ssd_bound(b: int, s: int, h: int, p: int, n: int, with_h0: bool):
-    """(least ms, what bounds it) of the SSD scan at K4's chunk SSD_Q: the
-    f32 operands read once (h0 too, if given) and y and the final state
-    written once at the HBM rate, against the chunked form's operations at
-    the f32 CUDA-core peak (2e-4 is beyond TF32), a multiply-add counted as
-    2.  Per batch row and chunk of q positions, C B^T over its q (q + 1) / 2
-    lower pairs (2 N each; B and C are shared by the heads); per head and
-    chunk, the decay L on those pairs (1 each), the intra-chunk product
-    (2 P each), and the carry-in C h^T and the state update (2 q P N
-    each)."""
+    """(least ms, what bounds it, the route of the operations' time, ms of
+    the operations at the f32 CUDA-core rate) of the SSD scan at K4's chunk
+    SSD_Q: the f32 operands read once (h0 too, if given) and y and the final
+    state written once at the HBM rate, against the chunked form's
+    operations, a multiply-add counted as 2.  Per batch row and chunk of q
+    positions, C B^T over its q (q + 1) / 2 lower pairs (2 N each; B and C
+    are shared by the heads); per head and chunk, the decay L on those pairs
+    (1 each), the intra-chunk product (2 P each), and the carry-in C h^T and
+    the state update (2 q P N each).  The operations take the faster of two
+    routes: all on the f32 CUDA cores, or the four products on the TF32
+    tensor cores three times over (2e-4 is beyond one TF32 pass, not beyond
+    three: hi/lo splits of both operands) and the decays on the CUDA
+    cores."""
     t_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
                    + (2 if with_h0 else 1) * b * h * p * n) / HBM_BYTES_PER_S
-    ops = 0.0
+    products = rest = 0.0
     for s0 in range(0, s, SSD_Q):
         q = min(SSD_Q, s - s0)
         pairs = q * (q + 1) / 2
-        ops += b * pairs * 2 * n + b * h * (pairs * (1 + 2 * p) + 4 * q * p * n)
-    t_ops = ops / F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+        products += b * pairs * 2 * n + b * h * (pairs * 2 * p + 4 * q * p * n)
+        rest += b * h * pairs
+    t_cores = (products + rest) / F32_OPS_PER_S
+    t_tf32 = 3 * products / TF32_OPS_PER_S + rest / F32_OPS_PER_S
+    t_ops = min(t_cores, t_tf32)
+    route = "3xTF32 tensor cores" if t_tf32 <= t_cores else "f32 CUDA cores"
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", route,
+            t_cores * 1e3)
+
+
+def ssd_phase_ms(torch, fn, calls: int = 10) -> dict:
+    """Device ms a call of each of K4's CUDA kernels (``ssd_ops.PHASES``),
+    from ``torch.profiler`` over ``calls`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_time_rows(prof)
+    return {ph: sum(r["device_ms"] for r in rows if f"ssd_scan_{ph}_kernel" in r["name"]) / calls
+            for ph in ssd_ops.PHASES}
 
 
 def phase_kernel_k4(torch, smi: str) -> dict:
@@ -567,6 +600,10 @@ def phase_kernel_k4(torch, smi: str) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
+    def to_limit(got, want):    # the largest |err| / (atol + rtol |want|): <= 1 passes
+        return float(((got.double() - want.double()).abs()
+                      / (SSD_TOL + SSD_TOL * want.double().abs())).max())
+
     results, failed = {}, []
     for (b, s, h, p, n), with_h0 in SSD_SHAPES:
         x, dt = randn(b, s, h, p), torch.nn.functional.softplus(randn(b, s, h))
@@ -574,13 +611,14 @@ def phase_kernel_k4(torch, smi: str) -> dict:
         Bm, Cm = randn(b, s, n), randn(b, s, n)
         h0 = randn(b, h, p, n) if with_h0 else None
         args = (x, dt, A, Bm, Cm)
-        y, hT = ssd_ops.ssd_scan(*args, chunk=SSD_CHUNK, h0=h0)
+        chunk = SSD_CHUNK if s % min(SSD_CHUNK, s) == 0 else s    # the model's contract
+        y, hT = ssd_ops.ssd_scan(*args, chunk=chunk, h0=h0)
         want_y, want_h = ssd_ref(*args, h0)
         y64, h64 = ssd_ref(*(t.double() for t in args), None if h0 is None else h0.double())
         torch.cuda.synchronize()
         ok = bool(torch.allclose(y, want_y, rtol=SSD_TOL, atol=SSD_TOL)
                   and torch.allclose(hT, want_h, rtol=SSD_TOL, atol=SSD_TOL))
-        bound_ms, by = ssd_bound(b, s, h, p, n, with_h0)
+        bound_ms, by, route, f32_core_ms = ssd_bound(b, s, h, p, n, with_h0)
         row = {"phase": "kernel-K4", "batch": b, "s": s, "h": h, "p": p, "n": n,
                "h0": with_h0, "dtype": "float32", "ok": ok,
                "tolerance": {"rtol": SSD_TOL, "atol": SSD_TOL},
@@ -590,13 +628,19 @@ def phase_kernel_k4(torch, smi: str) -> dict:
                                       float((hT.double() - h64).abs().max())),
                "plain_f32_err_f64": max(float((want_y.double() - y64).abs().max()),
                                         float((want_h.double() - h64).abs().max())),
+               "worst_to_limit": max(to_limit(y, want_y), to_limit(hT, want_h)),
+               "worst_to_limit_f64": max(to_limit(y, y64), to_limit(hT, h64)),
                "max_abs_y": float(want_y.abs().max()),
-               "ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan(*args, chunk=SSD_CHUNK, h0=h0)),
+               "ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan(*args, chunk=chunk, h0=h0)),
                "plain_ms": cuda_ms(torch, lambda: ssd_ref(*args, h0), iters=3, warmup=1),
-               "chunked_ms": cuda_ms(torch, lambda: ssd_chunked(*args, SSD_CHUNK, h0),
+               "chunked_ms": cuda_ms(torch, lambda: ssd_chunked(*args, chunk, h0),
                                      iters=5, warmup=1),
-               "library_ms": None, "bound_ms": bound_ms, "bound_by": by, "card": smi}
+               "library_ms": None, "bound_ms": bound_ms, "bound_by": by,
+               "bound_route": route, "f32_core_bound_ms": f32_core_ms, "card": smi}
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if (b, s, h, p, n) == SSD_SERVING:
+            row["phase_ms"] = ssd_phase_ms(
+                torch, lambda: ssd_ops.ssd_scan(*args, chunk=chunk, h0=h0))
         emit(row)
         results[((b, s, h, p, n), with_h0)] = row
         if not ok:
@@ -891,6 +935,7 @@ def main() -> int:
         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "chunked_ms": row["chunked_ms"],
+        "f32_core_bound_ms": row["f32_core_bound_ms"],
         "shape": dict(zip(("batch", "s", "h", "p", "n"), SSD_SERVING), dtype="float32")})
     emit({"kernels": summary})
     print(device["nvidia_smi"], flush=True)

@@ -7,58 +7,104 @@
 //        h <- exp(cum_Q) h + sum_s exp(cum_Q - cum_s) (dt·x)_s ⊗ B_s
 //    with cum the running sum of a = dt·A inside the chunk, and the final
 //    (P, N) state emitted.  B and C (ngroups = 1) are shared across heads.
-//    All math in f32 (no TF32), f32 outputs.
+//    f32 in, f32 out.
 //
 // Layout.  The model's own: x (batch, S, H, P), dt (batch, S, H), A (H,),
 // B and C (batch, S, N), optional h0 (batch, H, P, N); y (batch, S, H, P)
-// and h (batch, H, P, N).  All contiguous.  The TPU wrapper's two moveaxis
-// copies to a head-major layout are not needed: the kernel computes its own
-// offsets into the model layout.
+// and h (batch, H, P, N).  All contiguous; the kernels compute their own
+// offsets, so the TPU wrapper's head-major copies are not needed.
 //
-// Bound on an H100 SXM: operations.  At the serving micro-batch of
-// Mamba2-130M (batch 4, S 1,024, H 24, P 64, N 128) the function moves
+// Bound on an H100 SXM at the serving micro-batch of Mamba2-130M (batch 4,
+// S 1,024, H 24, P 64, N 128), chunk Q = 64.  Bytes: the function moves
 // ~58 MB (x and y 25.2 MB each, B and C 4.2, h 3.1), 17 us at 3.35 TB/s.
-// In chunked form at Q = 64 it needs ~3.7 GFLOP (C B^T once per batch and
-// chunk, the lower triangles only; 2 Q^2 P / 2 for the intra-chunk product
-// and 4 Q P N for the carry-in and the state update per head and chunk),
-// 55 us at the 67 TFLOP/s f32 CUDA-core rate.  This first kernel does more
-// than that (~10 GFLOP: C B^T and full Q x Q squares recomputed by every
-// block) on the CUDA cores, from shared memory.
+// Operations: 3.667 GFLOP in chunked form, of which 3.63 are the four
+// matrix products (C B^T once per batch row and chunk on its lower
+// triangle; per head and chunk the intra-chunk product, the carry-in
+// C h^T and the state update) and the rest the decays.  On the CUDA
+// cores in f32 that is 55 us at 67 TFLOP/s.  One TF32 pass misses the 2e-4
+// check against the float64 recurrence, so the products run as 3xTF32
+// (three tensor-core passes, below): 3 x 3.63 GFLOP at 495 TFLOP/s plus the
+// decays at 67 is 22 us, the bound on this route.
 //
-// Design.  The TPU grid (B·H, S/Q) carries the state in VMEM across its
-// sequential chunk axis; Hopper's blocks run in no order, so the chunk loop
-// runs inside the block:
-//  * grid (batch·H, ceil(P / 16)): the state's rows are independent
-//    (y[:, p] needs only h[p, :] and x[:, p]), so each block of 256 threads
-//    owns 16 of them and walks the chunks in order, its (16, N) slice of the
-//    state in shared memory.  384 blocks at the serving shape;
-//  * Q = 64, the kernel's own chunk length, chosen for shared memory (a
-//    256 x 256 f32 score tile would not fit); the result is the same
-//    function up to f32 rounding.  A ragged last chunk is zero-filled
-//    (dt = 0 there, so it adds nothing and decays nothing) and its rows
-//    past S are not stored;
-//  * per chunk: stage B, C, dt·x and dt; the segment sums
-//    seg[i][j] = sum_{j<s<=i} a_s as running sums down each column, one
-//    thread per column, and cum_i by a warp-shuffle scan; C B^T in 4 x 4
-//    register micro-tiles, each score times exp(seg[i][j]) only where
-//    j <= i (the exponential is never taken above the diagonal, where it
-//    would overflow); y = intra + carry-in, stored in the model layout;
-//    then the state update, weighted by exp(seg[Q-1][j]);
-//  * numerics: the TPU kernel (and the chunked reference) forms the decay
-//    as exp(cum_i - cum_j), a difference of two running sums; where a
-//    head decays fast these reach -100 or less within a chunk and the
-//    difference keeps only ~1e-5 of relative accuracy (errors of 1.1e-3
-//    against the float64 recurrence at the serving shape, |y| up to ~300,
-//    where 2e-4 is asked).  The column sums add only the terms of each
-//    segment;
-//  * the +1 row pads of the (Q, N) and (16, N) tiles keep column-wise reads
-//    free of bank conflicts.
-// Shared memory: 2 Q (N + 1) + Q (Q + 1) + 2 Q 16 + 16 (N + 1) + 3 Q + 1
-// floats: 99,908 B at N = 128, 2 blocks per SM.
+// Design.  The TPU grid (B·H, S/Q) carries the state across its sequential
+// chunk axis.  Here the sequence is cut into spans of SPAN = 4 chunks (256
+// positions) whose states are found in parallel and then joined, in three
+// kernels launched in order on one stream; a span block of kernels 1 and 3
+// is one (head, P tile of PT = 64, span):
+//  1. ssd_scan_state_kernel, grid (batch·H, P / PT, spans + a few), 256
+//     threads (two blocks an SM):
+//     * each span block: the span's local state from zero, sum_s
+//       exp(sum_{s<t<=end} a_t) dt_s x_s ⊗ B_s, as one product of depth the
+//       span's length accumulated in registers across its 64-position
+//       panels (B and x panels double-buffered), and the span's summed a.
+//       The span states take 12.6 MB at the serving shape;
+//     * the launch's last blocks, two per (batch row, chunk), which fill the
+//       SMs the span blocks leave in the last wave: C B^T of that chunk,
+//       once (B and C are shared by all heads and P tiles), the tiles on or
+//       below the diagonal only, stored transposed as cbt[b][c][j][i] =
+//       C_i · B_j (zero for j > i): a (batch, chunks, Q, Q) scratch, 1 MB.
+//  2. ssd_scan_pass_kernel, grid (batch·H, P·N / 512): one thread per state
+//     element walks the spans in order, h_in[k + 1] = exp(sum a over span k)
+//     h_in[k] + local[k] from h0 (or 0), writes h_in in place over the
+//     local states and the final state to hout.  Elementwise, coalesced.
+//  3. ssd_scan_out_kernel, grid (batch·H, P / PT, spans), 512 threads: each
+//     block starts from its span's h_in and walks the span's chunks: y =
+//     (C B^T ⊙ L)(dt·x) + exp(cum) C h^T, stored in the model layout, then the
+//     state update for every chunk but the span's last.  Staging runs a
+//     chunk ahead: C, the cbt tile, dt and x in two buffers where they fit
+//     (N <= 128), B in one, refilled as soon as the chunk's update is done
+//     with it.
+//  * Decays.  Every decay is a segment sum of a, summed by warp-shuffle
+//    scans (two 32-lane scans per 64 values): cum_i (prefix), the suffix
+//    sums inside a chunk or panel, and, for L, each column j of the Q x Q
+//    triangle summed over rows j+1..i: 8 threads a column, each a running
+//    sum over 8 rows plus an exclusive scan of the blocks before it across
+//    the 8 (all 64 columns at once).  Sums across panels add whole panels'
+//    sums.  Never exp(cum_i - cum_j): the difference of two
+//    running sums loses digits where a head decays fast (1.1e-3 against
+//    the float64 recurrence at the serving shape, where 2e-4 is asked); a
+//    scan adds only the terms of each segment.  exp is taken only where
+//    j <= i (above the diagonal it would overflow).
+//  * Products.  All four on mma.sync m16n8k8 TF32 with f32 accumulation,
+//    each operand split hi/lo (split_tf32) and acc += a_hi b_hi plus the
+//    small terms a_lo b_hi + a_hi b_lo, summed first in an accumulator of
+//    their own: within the 2e-4 check for 3 tensor-core passes, where one
+//    pass is not (PERF.md has the error on the card).  The weights (dt,
+//    the decays) are applied to an operand before the split.  Each warp
+//    owns a 16-row band of an output and 8-column tiles of it; C B^T skips
+//    the tiles above the diagonal, the intra-chunk product the k-steps past
+//    it.  The carry-in, the largest product, has both operands with k
+//    contiguous (C's rows, the state's rows), so its fragments come by
+//    ldmatrix; the others are read a word at a time.
+//  * Staging.  16-byte cp.async (4-byte for dt); where N or P is not a
+//    multiple of 4, or a pointer is not 16-byte aligned, plain loads
+//    instead.  N is zero-filled to a multiple of 8 (32 for B and h) and P to
+//    PT in shared memory only; a ragged last chunk is zero-filled (dt = 0
+//    there: it adds nothing and decays nothing), and its rows past S are not
+//    stored.  The out kernel's (PT, N) state slice stays in shared memory.
+//    Row pads keep every fragment read free of bank conflicts: rows read as
+//    a (row, k) operand are 4 mod 32 floats apart, rows read as a
+//    (k, column) operand 8 mod 32.  Shared memory a block (smem_bytes) at
+//    N = 128: state 108,560 B, out 210,960; the out kernel single-buffers
+//    where two buffers would not fit (N > 128).  PT is 64 up to N = 128 and
+//    32 above (tile_of): at PT 64 the state kernel's eight warps would hold
+//    more than two (16-row band, 32-column) items each.  The span (4) and
+//    the P tile (64) were chosen by measuring spans of 2, 4 and 8 at PT 32
+//    and 64 (PERF.md).
 //
-// C interface (loaded with ctypes): ssd_forward launches on the given stream
-// of the given device, leaves the caller's current device as it found it,
-// does not synchronise, and returns a cudaError_t (0 on success).
+// What it issues at the serving shape (span 4, PT 64): products of 4.98
+// GFLOP (C B^T 0.04; state kernel 1.61; out kernel: carry-in 1.61, intra
+// 0.50, state update on 12 of 16 chunks 1.21), 14.9 GFLOP of TF32 mma with
+// the split; the state update runs twice over 3 of every 4 chunks.  About 130 MB of device
+// memory traffic: x twice, y once, the span states four times (written,
+// read and rewritten, read), B and C once per kernel that reads them and
+// then again from L2 for every head, cbt twice.  The measured time and
+// where it goes are in PERF.md.
+//
+// C interface (loaded with ctypes): ssd_forward launches the three kernels
+// on the given stream of the given device, leaves the caller's current
+// device as it found it, does not synchronise, allocates nothing (the
+// caller passes the scratch), and returns a cudaError_t (0 on success).
 
 #include <cuda_runtime.h>
 
@@ -67,193 +113,638 @@
 
 namespace {
 
-constexpr int Q = 64;                 // positions per chunk
-constexpr int PT = 16;                // state rows (head-dim columns) per block
-constexpr int THREADS = 256;
-constexpr int TX = 16, TY = 16;       // score micro-tiling
-constexpr int TM = Q / TY;            // score rows per thread (4)
-constexpr int TN = Q / TX;            // score columns per thread (4)
-constexpr int YROWS = Q * PT / THREADS;   // y rows per thread (4)
-constexpr int MLD = Q + 1;            // row stride of the score tile
-constexpr int HALF = THREADS / 2;     // state update: threads per 8-row half
+constexpr int Q = 64;                  // positions per chunk
+constexpr int THREADS = 512;           // cb, pass and out kernels
+constexpr int WARPS = THREADS / 32;
+constexpr int STATE_THREADS = 256;     // state kernel: two blocks an SM
+static_assert(THREADS == 8 * 64, "the out kernel sums L's 64 columns 8 threads a column");
+constexpr int STATE_WARPS = STATE_THREADS / 32;
 constexpr int MAX_N = 256;
+constexpr int SPAN = 4;                // chunks a span: 256 positions
+constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory of one block
+constexpr int LDM = Q + 8;             // row stride of the cbt / M tile
+constexpr unsigned FULL = 0xffffffffu;
 
-size_t smem_floats(int N) {
-  const size_t ld = (size_t)N + 1;
-  return 2 * Q * ld + (size_t)Q * MLD + 2 * (size_t)Q * PT + PT * ld + 3 * Q + 1;
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+// Row strides: 4 mod 32 floats for rows read as a (row, k) operand,
+// 8 mod 32 for rows read as a (k, column) operand.
+__host__ __device__ constexpr int ld4(int n) { return round_up(n, 32) + 4; }
+__host__ __device__ constexpr int ld8(int n) { return round_up(n, 32) + 8; }
+__host__ __device__ constexpr int ldx(int pt) { return pt + 8; }
+
+// Shared memory, in floats.
+__host__ __device__ constexpr int cb_floats(int N) { return 2 * Q * ld4(N); }
+__host__ __device__ constexpr int state_stage(int N, int pt) {
+  return Q * ld8(N) + Q * ldx(pt);                  // B, x
+}
+__host__ __device__ constexpr int state_floats(int N, int pt, int stages) {
+  return stages * state_stage(N, pt) + 2 * SPAN * Q + SPAN;   // + weights, sums
+}
+__host__ __device__ constexpr int out_floats(int N, int pt, int ab) {
+  return ab * (Q * ld4(N) + Q * LDM + Q) + Q * ld8(N)   // C, cbt and dt ab times, B
+         + 2 * Q * ldx(pt) + pt * ld4(N) + 2 * Q + 4;   // x twice, h, exp(cum), w, decay
 }
 
-__global__ void __launch_bounds__(THREADS)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const float* __restrict__ Bm,
-                const float* __restrict__ Cm, const float* __restrict__ h0,
-                float* __restrict__ y, float* __restrict__ hout, int S, int H,
-                int P, int N) {
-  extern __shared__ float smem[];
-  const int ld = N + 1;
-  float* bs = smem;                   // [Q][ld]  B rows of the chunk
-  float* cs = bs + Q * ld;            // [Q][ld]  C rows
-  float* ms = cs + Q * ld;            // [Q][MLD] (C B^T ⊙ L), zero above the diagonal
-  float* xs = ms + Q * MLD;           // [Q][PT]  dt·x
-  float* wx = xs + Q * PT;            // [Q][PT]  exp(seg[Q-1][j]) dt·x
-  float* hs = wx + Q * PT;            // [PT][ld] the block's slice of the state
-  float* dts = hs + PT * ld;          // [Q]
-  float* sfx = dts + Q;               // [Q] seg[Q-1][j] = sum_{j<s<Q} dt·A
-  float* ecum = sfx + Q;              // [Q] exp(cum_i), cum_i = sum_{s<=i} dt·A
-  float* cdecay = ecum + Q;           // [1] exp(cum_{Q-1})
+// -- device helpers -----------------------------------------------------------
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - b * H;
-  const int p0 = blockIdx.y * PT;
-  const int pw = min(PT, P - p0);     // state rows of this block that exist
-  const int tid = threadIdx.x;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes global -> shared, asynchronously; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// v as hi + lo, both TF32 operands: hi = v cut to TF32 (its 13 low bits
+// cleared), lo = v - hi (exact in f32), which the tensor core reads cut to
+// TF32 too (it ignores an operand's 13 low bits).  hi + lo keeps all but at
+// most the 2 lowest of v's 24 bits: an error below 2^-21 |v|.
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32, row-major) b (8 x 8, tf32, col-major)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One warp: acc[t] (16 x 8) += A (16 x K) B (K x 8) for the 8-column tiles
+// tlo <= t < thi, over k in [k0, k1) (multiples of 8), 3xTF32: the small
+// terms a_lo b_hi + a_hi b_lo summed in an accumulator of their own (two
+// independent mma chains a tile), added to acc at the end.  fa(r, k) is
+// A[r][k] (r < 16); fb(k, c) is B[k][c] with c = 8 t + column.  Fragment
+// layouts of mma.m16n8k8 (g = lane / 4, q = lane % 4): a0 (g, q), a1
+// (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4); b0 (q, g), b1 (q + 4, g);
+// acc (g, 2q), (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1).
+template <int NB, class FA, class FB>
+__device__ __forceinline__ void mma3(float (&acc)[NB][4], int k0, int k1, int tlo, int thi,
+                                     FA fa, FB fb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float small[NB][4] = {};
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 8) {
+    unsigned ah[4], al[4];
+    split_tf32(fa(g, k + q), ah[0], al[0]);
+    split_tf32(fa(g + 8, k + q), ah[1], al[1]);
+    split_tf32(fa(g, k + q + 4), ah[2], al[2]);
+    split_tf32(fa(g + 8, k + q + 4), ah[3], al[3]);
+#pragma unroll
+    for (int t = 0; t < NB; ++t) {
+      if (t < tlo || t >= thi) continue;
+      unsigned bh0, bl0, bh1, bl1;
+      split_tf32(fb(k + q, 8 * t + g), bh0, bl0);
+      split_tf32(fb(k + q + 4, 8 * t + g), bh1, bl1);
+      mma_tf32(small[t], al, bh0, bh1);
+      mma_tf32(small[t], ah, bl0, bl1);
+      mma_tf32(acc[t], ah, bh0, bh1);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NB; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] += small[t][e];
+}
+
+// Four (two) 8 x 4 f32 tiles from shared memory, as ldmatrix's 8 x 8 b16
+// tiles: lane 8 i + r gives the address of row r of tile i (16 bytes, 16-byte
+// aligned), and every lane gets word (lane / 4, lane % 4) of each tile.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
+}
+
+// mma3 for A (16 x K) and B^T (8 NB x K) both stored with k contiguous (row
+// strides lda, ldb 16-byte multiples, 4 mod 32 floats): the fragments come
+// by ldmatrix, one instruction for A's four registers and one for two
+// tiles of B.
+template <int NB>
+__device__ __forceinline__ void mma3_ldsm(float (&acc)[NB][4], const float* a, int lda,
+                                          const float* bt, int ldb, int K) {
+  const int lane = threadIdx.x & 31, tile = lane >> 3, row = lane & 7;
+  const float* pa = a + (row + 8 * (tile & 1)) * lda + 4 * (tile >> 1);
+  const float* pb = bt + (row + 8 * (tile >> 1)) * ldb + 4 * (tile & 1);
+  float small[NB][4] = {};
+#pragma unroll 2
+  for (int k = 0; k < K; k += 8) {
+    unsigned ar[4], ah[4], al[4];
+    ldsm_x4(ar, pa + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(ar[i]), ah[i], al[i]);
+#pragma unroll
+    for (int t = 0; t < NB; t += 2) {
+      unsigned br[4] = {}, bh[4], bl[4];
+      if constexpr (NB == 1) {
+        unsigned b2[2];
+        ldsm_x2(b2, pb + k);
+        br[0] = b2[0];
+        br[1] = b2[1];
+      } else {
+        ldsm_x4(br, pb + 8 * t * ldb + k);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(br[i]), bh[i], bl[i]);
+#pragma unroll
+      for (int u = 0; u < 2 && t + u < NB; ++u) {
+        mma_tf32(small[t + u], al, bh[2 * u], bh[2 * u + 1]);
+        mma_tf32(small[t + u], ah, bl[2 * u], bl[2 * u + 1]);
+        mma_tf32(acc[t + u], ah, bh[2 * u], bh[2 * u + 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NB; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] += small[t][e];
+}
+
+// Inclusive sum over the warp's lanes.
+__device__ __forceinline__ float warp_scan(float v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(FULL, v, off);
+    if (lane >= off) v += u;
+  }
+  return v;
+}
+
+// Stage `rows` rows of `cols` floats (row stride rs) into dst[nrows][ld]
+// (nrows = Q unless given), zero-filling rows rows..nrows and columns
+// cols..cols_pad.  vec: 16-byte cp.async (cols % 4 == 0, src and rs 16-byte
+// aligned), left for the caller to commit; else plain loads.
+__device__ __forceinline__ void stage_rows(float* __restrict__ dst, int ld,
+                                           const float* __restrict__ src, size_t rs,
+                                           int rows, int cols, int cols_pad, bool vec,
+                                           int nrows = Q) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < nrows; r += blockDim.x >> 5) {
+    if (vec) {
+      for (int c = 4 * lane; c < cols_pad; c += 128) {
+        const bool in = r < rows && c < cols;
+        cp_async16(dst + r * ld + c, in ? src + r * rs + c : src, in ? 16 : 0);
+      }
+    } else {
+      for (int c = lane; c < cols_pad; c += 32)
+        dst[r * ld + c] = r < rows && c < cols ? src[r * rs + c] : 0.f;
+    }
+  }
+}
+
+// dt of positions s0 .. s0 + Q of head h (stride H), zero past `rows`.
+__device__ __forceinline__ void stage_dt(float* dst, const float* __restrict__ dt,
+                                         size_t first, int H, int rows) {
+  if (threadIdx.x < Q) {
+    const bool in = threadIdx.x < rows;
+    cp_async4(dst + threadIdx.x, in ? dt + first + (size_t)threadIdx.x * H : dt, in ? 4 : 0);
+  }
+}
+
+// Decays of one chunk from its dt (a = dt·A), as segment sums by warp scans.
+// Warp 0: ec[i] = exp(cum_i), cum_i = sum_{s<=i} a_s, and *decay =
+// exp(cum_{Q-1}).  Warp 1: w[j] = exp(sum_{s>j} a_s).
+__device__ __forceinline__ void chunk_decays(const float* ds, float a_h, float* ec,
+                                             float* w, float* decay) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 0) {
+    const float s0 = warp_scan(ds[lane] * a_h);
+    const float s1 = warp_scan(ds[lane + 32] * a_h) + __shfl_sync(FULL, s0, 31);
+    ec[lane] = expf(s0);
+    ec[lane + 32] = expf(s1);
+    if (lane == 31) *decay = expf(s1);
+  } else if (warp == 1) {
+    // suffix sums in reverse order: r0 = sum_{s >= 63 - lane}, r1 = sum_{s >= 31 - lane}
+    const float r0 = warp_scan(ds[63 - lane] * a_h);
+    const float r1 = warp_scan(ds[31 - lane] * a_h) + __shfl_sync(FULL, r0, 31);
+    w[62 - lane] = expf(r0);
+    if (lane < 31) w[30 - lane] = expf(r1);
+    if (lane == 0) w[63] = 1.f;
+  }
+}
+
+// x[j][p] *= dt_j for the Q rows of a staged (Q x PT) x tile.
+template <int PT>
+__device__ __forceinline__ void scale_rows(float* __restrict__ xs, const float* __restrict__ ds) {
+  for (int e = threadIdx.x; e < Q * PT; e += THREADS) {
+    const int r = e / PT, c = e - r * PT;
+    xs[r * ldx(PT) + c] *= ds[r];
+  }
+}
+
+// h[PT][ldh] <- decay h + (w ⊙ xdt)^T B for the block's state slice: A = the
+// (PT x Q) transpose of dt·x (rows scaled by w), B = the (Q x N32) B tile, N32 =
+// N rounded up to 32 (B and h zero past N).  Work items are (16-row band,
+// 32 columns), dealt to the warps in turn.
+template <int PT>
+__device__ __forceinline__ void state_update(float* __restrict__ hs, int ldh,
+                                             const float* __restrict__ xs,
+                                             const float* __restrict__ bs, int ldb,
+                                             const float* __restrict__ w, float decay, int N32) {
+  constexpr int BANDS = PT / 16;
+  constexpr int LX = ldx(PT);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  for (int item = warp; item < BANDS * (N32 / 32); item += WARPS) {
+    const int band = item % BANDS, c0 = 32 * (item / BANDS);
+    float* ht = hs + 16 * band * ldh + c0;
+    float acc[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int c = 8 * t + 2 * q;
+      acc[t][0] = decay * ht[g * ldh + c];
+      acc[t][1] = decay * ht[g * ldh + c + 1];
+      acc[t][2] = decay * ht[(g + 8) * ldh + c];
+      acc[t][3] = decay * ht[(g + 8) * ldh + c + 1];
+    }
+    mma3<4>(acc, 0, Q, 0, 4,
+            [&](int r, int k) { return xs[k * LX + 16 * band + r] * w[k]; },
+            [&](int k, int c) { return bs[k * ldb + c0 + c]; });
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int c = 8 * t + 2 * q;
+      ht[g * ldh + c] = acc[t][0];
+      ht[g * ldh + c + 1] = acc[t][1];
+      ht[(g + 8) * ldh + c] = acc[t][2];
+      ht[(g + 8) * ldh + c + 1] = acc[t][3];
+    }
+  }
+}
+
+// -- kernels ------------------------------------------------------------------
+
+// cbt[b][c][j][i] = C_{s0+i} · B_{s0+j} for j <= i, else 0 (s0 = c Q), the
+// row bands `half` and 3 - half (10 of the 20 tiles on or below the
+// diagonal), by the 8 warps of a state-kernel block.
+__device__ __forceinline__ void cb_tiles(const float* __restrict__ Bm,
+                                         const float* __restrict__ Cm, float* __restrict__ cbt,
+                                         float* smem, int b, int c, int half, int nc, int S,
+                                         int N, int bc_vec) {
+  const int LC = ld4(N), NP = round_up(N, 8);
+  float* bs = smem;                   // [Q][LC] B rows of the chunk
+  float* cs = bs + Q * LC;            // [Q][LC] C rows
+  const int s0 = c * Q, len = min(Q, S - s0);
+  const size_t row0 = (size_t)b * S + s0;
+  stage_rows(bs, LC, Bm + row0 * N, N, len, N, NP, bc_vec);
+  stage_rows(cs, LC, Cm + row0 * N, N, len, N, NP, bc_vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // warp: rows j of its band, column tiles t0, t0 + 1; the tiles wholly
+  // above the diagonal (i < j everywhere) stay zero
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int band = warp < 4 ? half : 3 - half, t0 = 2 * (warp & 3);
+  float acc[2][4] = {};
+  mma3<2>(acc, 0, NP, max(0, 2 * band - t0), 2,
+          [&](int r, int k) { return bs[(16 * band + r) * LC + k]; },
+          [&](int k, int col) { return cs[(8 * t0 + col) * LC + k]; });
+  float* out = cbt + ((size_t)b * nc + c) * Q * Q;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int i = 8 * (t0 + t) + 2 * q;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int j = 16 * band + g + 8 * hf;
+      const float2 v = make_float2(i >= j ? acc[t][2 * hf] : 0.f,
+                                   i + 1 >= j ? acc[t][2 * hf + 1] : 0.f);
+      *reinterpret_cast<float2*>(out + j * Q + i) = v;
+    }
+  }
+}
+
+// Span-local states: h_local = sum over the span's positions s of
+// exp(sum_{s<t<=end} a_t) dt_s x_s ⊗ B_s, one product of depth the span's
+// length, accumulated in registers across its 64-position panels.  The
+// weights are segment sums too: the suffix inside a panel plus the sums of
+// the panels after it.
+template <int PT>
+__global__ void __launch_bounds__(STATE_THREADS, 2)
+ssd_scan_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ A, const float* __restrict__ Bm,
+                      const float* __restrict__ Cm, float* __restrict__ cbt,
+                      float* __restrict__ states, float* __restrict__ logdec, int batch,
+                      int S, int H, int P, int N, int n_spans, int stages,
+                      int x_vec, int bc_vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int nc = (S + Q - 1) / Q;
+  if ((int)blockIdx.z >= n_spans) {   // the launch's last blocks: C B^T, two per chunk
+    const int id = ((blockIdx.z - n_spans) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    if (id < 2 * nc * batch)
+      cb_tiles(Bm, Cm, cbt, smem, id / 2 / nc, id / 2 % nc, id % 2, nc, S, N, bc_vec);
+    return;
+  }
+  const int LB = ld8(N), N32 = round_up(N, 32);
+  constexpr int LX = ldx(PT);
+  constexpr int BANDS = PT / 16;
+  const int stage = state_stage(N, PT);
+  float* wd = smem + stages * stage;  // [SPAN Q] dt, then dt exp(sum_{s<t<=end} a_t)
+  float* sfx = wd + SPAN * Q;         // [SPAN Q] suffix sums of a inside each panel
+  float* tot = sfx + SPAN * Q;        // [SPAN] each panel's sum of a
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int p0 = blockIdx.y * PT, pw = min(PT, P - p0);
+  const int c0 = blockIdx.z * SPAN, c1 = min(nc, c0 + SPAN), np = c1 - c0;
   const float a_h = A[h];
-  const size_t hbase = ((size_t)bh * P + p0) * N;   // h[b, h, p0, 0]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 
-  for (int e = tid; e < PT * N; e += THREADS) {
-    const int r = e / N, n = e - r * N;
-    hs[r * ld + n] = (h0 != nullptr && r < pw) ? h0[hbase + (size_t)r * N + n] : 0.f;
+  auto stage_panel = [&](float* buf, int c) {
+    const int s0 = c * Q, len = min(Q, S - s0);
+    const size_t row0 = (size_t)b * S + s0;
+    stage_rows(buf, LB, Bm + row0 * N, N, len, N, N32, bc_vec);
+    stage_rows(buf + Q * LB, LX, x + (row0 * H + h) * P + p0, (size_t)H * P, len, pw, PT,
+               x_vec);
+  };
+  stage_panel(smem, c0);
+  cp_async_commit();
+
+  for (int s = threadIdx.x; s < np * Q; s += STATE_THREADS) {
+    const int pos = c0 * Q + s;
+    wd[s] = pos < S ? dt[((size_t)b * S + pos) * H + h] : 0.f;
+  }
+  __syncthreads();
+  for (int pnl = warp; pnl < np; pnl += STATE_WARPS) {
+    const float* d = wd + pnl * Q;
+    float* f = sfx + pnl * Q;
+    const float r0 = warp_scan(d[63 - lane] * a_h);      // sum_{t >= 63 - lane}
+    const float r1 = warp_scan(d[31 - lane] * a_h) + __shfl_sync(FULL, r0, 31);
+    f[62 - lane] = r0;
+    if (lane < 31) f[30 - lane] = r1;
+    if (lane == 0) f[63] = 0.f;
+    if (lane == 31) tot[pnl] = r1;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < np * Q; s += STATE_THREADS) {
+    float later = 0.f;
+    for (int k = s / Q + 1; k < np; ++k) later += tot[k];
+    wd[s] *= expf(sfx[s] + later);
   }
 
-  const int tx = tid % TX, ty = tid / TX;     // scores
-  const int yc = tid % PT, yr = tid / PT;     // y: column yc, rows yr + 16 k
-  const int half = tid / HALF, col = tid % HALF;   // state: rows 8 half .. +7
-
-  for (int s0 = 0; s0 < S; s0 += Q) {
-    const int len = min(Q, S - s0);
-    // 1. stage the chunk; rows past len are zero
-    const float* bsrc = Bm + ((size_t)b * S + s0) * N;
-    const float* csrc = Cm + ((size_t)b * S + s0) * N;
-    for (int e = tid; e < Q * N; e += THREADS) {
-      const int r = e / N, n = e - r * N;
-      const bool in = r < len;
-      bs[r * ld + n] = in ? bsrc[e] : 0.f;
-      cs[r * ld + n] = in ? csrc[e] : 0.f;
-    }
-    for (int e = tid; e < Q * PT; e += THREADS) {
-      const int r = e / PT, c = e - r * PT;
-      float v = 0.f;
-      if (r < len && c < pw) {
-        const size_t row = ((size_t)b * S + s0 + r) * H + h;
-        v = x[row * P + p0 + c] * dt[row];
-      }
-      xs[e] = v;
-    }
-    if (tid < Q) dts[tid] = tid < len ? dt[((size_t)b * S + s0 + tid) * H + h] : 0.f;
-    __syncthreads();
-
-    // 2. decays of a = dt·A.  Threads j < Q: seg[i][j] (i > j) into ms by a
-    //    running sum down column j, and sfx[j].  The next warp: cum by an
-    //    inclusive shuffle scan, two positions per lane.
-    if (tid < Q) {
-      float acc = 0.f;
-      for (int i = tid + 1; i < Q; ++i) {
-        acc += dts[i] * a_h;
-        ms[i * MLD + tid] = acc;
-      }
-      ms[tid * MLD + tid] = 0.f;
-      sfx[tid] = acc;
-    } else if (tid < Q + 32) {
-      const int lane = tid - Q;
-      const float a0 = dts[2 * lane] * a_h, a1 = dts[2 * lane + 1] * a_h;
-      float v = a0 + a1;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += u;
-      }
-      float before = __shfl_up_sync(0xffffffffu, v, 1);
-      if (lane == 0) before = 0.f;
-      ecum[2 * lane] = expf(before + a0);
-      ecum[2 * lane + 1] = expf(v);
-      if (lane == 31) cdecay[0] = expf(v);
+  // warp: items (16-row band, 32 columns) warp and warp + STATE_WARPS
+  const int items = BANDS * (N32 / 32);
+  float acc[2][4][4] = {};
+  for (int c = c0; c < c1; ++c) {
+    float* buf = smem + (stages == 2 ? ((c - c0) & 1) * stage : 0);
+    if (stages == 2 && c + 1 < c1) {
+      stage_panel(smem + ((c - c0 + 1) & 1) * stage, c + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    // 3. scores C B^T (4 x 4 per thread) times exp(seg) where j <= i; wx
-    {
-      float sc[TM][TN];
+    const float* bs = buf;
+    const float* xs = buf + Q * LB;
+    const float* coef = wd + (c - c0) * Q;
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) sc[i][j] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[TM], bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) cv[i] = cs[(ty + TY * i) * ld + n];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = bs[(tx + TX * j) * ld + n];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) sc[i][j] = fmaf(cv[i], bv[j], sc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int row = ty + TY * i;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int c = tx + TX * j;
-          ms[row * MLD + c] = c <= row ? sc[i][j] * expf(ms[row * MLD + c]) : 0.f;
-        }
-      }
-      for (int e = tid; e < Q * PT; e += THREADS) wx[e] = expf(sfx[e / PT]) * xs[e];
+    for (int j = 0; j < 2; ++j) {
+      const int item = warp + j * STATE_WARPS;
+      if (item >= items) break;
+      const int band = item % BANDS, cb = 32 * (item / BANDS);
+      mma3<4>(acc[j], 0, Q, 0, 4,
+              [&](int r, int k) { return xs[k * LX + 16 * band + r] * coef[k]; },
+              [&](int k, int col) { return bs[k * LB + cb + col]; });
     }
     __syncthreads();
-
-    // 4. y = intra-chunk + carry-in, rows yr + 16 k of column yc
-    {
-      float acc[YROWS], carry[YROWS];
-#pragma unroll
-      for (int k = 0; k < YROWS; ++k) acc[k] = carry[k] = 0.f;
-      for (int j = 0; j < len; ++j) {
-        const float xv = xs[j * PT + yc];
-#pragma unroll
-        for (int k = 0; k < YROWS; ++k)
-          acc[k] = fmaf(ms[(yr + 16 * k) * MLD + j], xv, acc[k]);
-      }
-      for (int n = 0; n < N; ++n) {
-        const float hv = hs[yc * ld + n];
-#pragma unroll
-        for (int k = 0; k < YROWS; ++k)
-          carry[k] = fmaf(cs[(yr + 16 * k) * ld + n], hv, carry[k]);
-      }
-      if (yc < pw) {
-#pragma unroll
-        for (int k = 0; k < YROWS; ++k) {
-          const int i = yr + 16 * k;
-          if (i < len)
-            y[(((size_t)b * S + s0 + i) * H + h) * P + p0 + yc] =
-                fmaf(ecum[i], carry[k], acc[k]);
-        }
-      }
+    if (stages == 1 && c + 1 < c1) {
+      stage_panel(smem, c + 1);
+      cp_async_commit();
     }
-    __syncthreads();
-
-    // 5. state update: column n of rows 8 half .. 8 half + 7
-    const float decay = cdecay[0];
-    for (int n = col; n < N; n += HALF) {
-      float hv[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) hv[k] = decay * hs[(8 * half + k) * ld + n];
-      for (int j = 0; j < len; ++j) {
-        const float bv = bs[j * ld + n];
-        const float* w = wx + j * PT + 8 * half;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) hv[k] = fmaf(w[k], bv, hv[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) hs[(8 * half + k) * ld + n] = hv[k];
-    }
-    __syncthreads();   // the next chunk overwrites the staged tiles
   }
 
-  for (int n = col; n < N; n += HALF)
+  float* dst = states + (((size_t)bh * n_spans + blockIdx.z) * P + p0) * N;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int item = warp + j * STATE_WARPS;
+    if (item >= items) break;
+    const int band = item % BANDS, cb = 32 * (item / BANDS);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int col = cb + 8 * t + 2 * q;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * band + g + 8 * hf;
+        if (r >= pw) continue;
+        if (col < N) dst[(size_t)r * N + col] = acc[j][t][2 * hf];
+        if (col + 1 < N) dst[(size_t)r * N + col + 1] = acc[j][t][2 * hf + 1];
+      }
+    }
+  }
+  if (blockIdx.y == 0 && threadIdx.x == 0) {
+    float sum = 0.f;
+    for (int k = 0; k < np; ++k) sum += tot[k];
+    logdec[(size_t)bh * n_spans + blockIdx.z] = sum;
+  }
+}
+
+// State passing across spans, one thread per state element: h_in[0] = h0
+// (or 0), h_in[k + 1] = exp(sum a over span k) h_in[k] + local[k], written in
+// place over the local states; the last carries on into hout.  Eight spans'
+// loads are in flight at a time.
+__global__ void __launch_bounds__(THREADS)
+ssd_scan_pass_kernel(const float* __restrict__ h0, float* __restrict__ states,
+                     const float* __restrict__ logdec, float* __restrict__ hout, int PN,
+                     int n_spans) {
+  const int bh = blockIdx.x;
+  const int e = blockIdx.y * THREADS + threadIdx.x;
+  if (e >= PN) return;
+  float hv = h0 != nullptr ? h0[(size_t)bh * PN + e] : 0.f;
+  float* st = states + (size_t)bh * n_spans * PN + e;
+  const float* ld = logdec + (size_t)bh * n_spans;
+  for (int k0 = 0; k0 < n_spans; k0 += 8) {
+    float local[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k0 + k < n_spans) local[k] = st[(size_t)(k0 + k) * PN];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const int r = 8 * half + k;
-      if (r < pw) hout[hbase + (size_t)r * N + n] = hs[r * ld + n];
+      if (k0 + k >= n_spans) break;
+      st[(size_t)(k0 + k) * PN] = hv;
+      hv = fmaf(expf(ld[k0 + k]), hv, local[k]);
     }
+  }
+  hout[(size_t)bh * PN + e] = hv;
+}
+
+// y over a span from the state entering it (hin, from the pass kernel).
+//
+// Staging runs a chunk ahead.  Group A of chunk c + 1 (C, the cbt tile, dt
+// and x) goes into the second of AB buffers: with AB = 2 it is issued as
+// chunk c starts, with AB = 1 once chunk c's y is done with the one buffer.
+// Group B (B, one buffer) of chunk c + 1 is issued once chunk c's state
+// update is done with it.
+template <int PT, int AB>
+__global__ void __launch_bounds__(THREADS)
+ssd_scan_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm, const float* __restrict__ cbt,
+                    const float* __restrict__ hin, float* __restrict__ y, int S, int H,
+                    int P, int N, int x_vec, int bc_vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int LC = ld4(N), LB = ld8(N), NP = round_up(N, 8), N32 = round_up(N, 32);
+  constexpr int LX = ldx(PT);
+  constexpr int NB = PT / 32;         // 8-column tiles of y per warp (4 warps a band)
+  const int abuf = Q * LC + Q * LDM + Q;
+  float* abufs = smem;                // [AB] C [Q][LC], cbt^T tile [Q][LDM], dt [Q]
+  float* bs = abufs + AB * abuf;      // [Q][LB] B rows
+  float* xbuf = bs + Q * LB;          // [2][Q][LX] x -> dt·x, by chunk parity
+  float* hs = xbuf + 2 * Q * LX;      // [PT][LC] the block's state slice
+  float* ec = hs + PT * LC;           // [Q] exp(cum_i)
+  float* w = ec + Q;                  // [Q] exp(sum_{s>j} a_s)
+  float* decay = w + Q;               // [1] exp(sum a over the chunk)
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int p0 = blockIdx.y * PT, pw = min(PT, P - p0);
+  const int nc = (S + Q - 1) / Q;
+  const int c0 = blockIdx.z * SPAN, c1 = min(nc, c0 + SPAN);
+  const float a_h = A[h];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+
+  auto stage_a = [&](int c) {
+    const int s0 = c * Q, len = min(Q, S - s0);
+    const size_t row0 = (size_t)b * S + s0;
+    float* a_c = abufs + (AB == 2 ? (c - c0) & 1 : 0) * abuf;
+    stage_rows(a_c, LC, Cm + row0 * N, N, len, N, NP, bc_vec);
+    stage_rows(a_c + Q * LC, LDM, cbt + ((size_t)b * nc + c) * Q * Q, Q, Q, Q, Q, true);
+    stage_dt(a_c + Q * LC + Q * LDM, dt, row0 * H + h, H, len);
+    stage_rows(xbuf + ((c - c0) & 1) * Q * LX, LX, x + (row0 * H + h) * P + p0,
+               (size_t)H * P, len, pw, PT, x_vec);
+  };
+  auto stage_b = [&](int c) {       // only for chunks followed by an update
+    const int s0 = c * Q, len = min(Q, S - s0);
+    stage_rows(bs, LB, Bm + ((size_t)b * S + s0) * N, N, len, N, N32, bc_vec);
+  };
+  stage_a(c0);
+  stage_rows(hs, LC, hin + (((size_t)bh * gridDim.z + blockIdx.z) * P + p0) * N, N, pw, N,
+             N32, bc_vec, PT);
+  cp_async_commit();
+  if (c0 + 1 < c1) stage_b(c0);
+  cp_async_commit();
+
+  for (int c = c0; c < c1; ++c) {
+    const bool more = c + 1 < c1;
+    const int s0 = c * Q, len = min(Q, S - s0);
+    float* xs = xbuf + ((c - c0) & 1) * Q * LX;
+    const float* cs = abufs + (AB == 2 ? (c - c0) & 1 : 0) * abuf;   // C rows of the chunk
+    float* ms = const_cast<float*>(cs) + Q * LC;   // cbt^T tile -> (C B^T ⊙ L)^T
+    const float* ds = ms + Q * LDM;                // dt
+    if constexpr (AB == 2) {
+      if (more) stage_a(c + 1);     // into the buffers chunk c - 1 left
+      cp_async_commit();
+      cp_async_wait<2>();           // group A of c (B of c and A of c + 1 may be in flight)
+    } else {
+      cp_async_wait<1>();           // group A of c (B of c may be in flight)
+    }
+    __syncthreads();
+
+    // 1. decays; x -> dt·x; M^T[j][i] = cbt[j][i] exp(sum_{j<s<=i} a_s) for
+    //    i >= j, else 0
+    chunk_decays(ds, a_h, ec, w, decay);    // warps 0 and 1
+    scale_rows<PT>(xs, ds);
+    {
+      // thread: rows i0 .. i0 + 7 of column j: a running sum of a_i (i > j)
+      // over its rows, plus the sum over the column's earlier row blocks,
+      // an exclusive scan across the column's 8 lanes
+      const int j = threadIdx.x >> 3, r = threadIdx.x & 7, i0 = 8 * r;
+      const float4 d0 = *reinterpret_cast<const float4*>(ds + i0);
+      const float4 d1 = *reinterpret_cast<const float4*>(ds + i0 + 4);
+      const float d[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+      float run[8], total = 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        total += i0 + u > j ? d[u] * a_h : 0.f;
+        run[u] = total;
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) {
+        const float t = __shfl_up_sync(FULL, total, off, 8);
+        if (r >= off) total += t;
+      }
+      float before = __shfl_up_sync(FULL, total, 1, 8);
+      if (r == 0) before = 0.f;
+      float4* mrow = reinterpret_cast<float4*>(ms + j * LDM + i0);
+      float4 m[2] = {mrow[0], mrow[1]};
+      float* mv = reinterpret_cast<float*>(m);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)   // __expf: relative error ~1e-6 where it matters
+        mv[u] = i0 + u >= j ? mv[u] * __expf(before + run[u]) : 0.f;
+      mrow[0] = m[0];
+      mrow[1] = m[1];
+    }
+    __syncthreads();
+
+    // 2. y rows of band warp / 4, columns pc .. pc + 8 NB: the carry-in
+    //    C h^T scaled by exp(cum_i), then the intra-chunk M (dt·x) up to the
+    //    diagonal.  Warp w runs on scheduler w % 4, so each scheduler gets one
+    //    warp of every band and the same share of the triangle.
+    {
+      const int band = warp >> 2, pc = (warp & 3) * NB * 8;
+      float acc[NB][4] = {};
+      mma3_ldsm<NB>(acc, cs + 16 * band * LC, LC, hs + pc * LC, LC, NP);
+      const float e0 = ec[16 * band + g], e1 = ec[16 * band + g + 8];
+#pragma unroll
+      for (int t = 0; t < NB; ++t) {
+        acc[t][0] *= e0;
+        acc[t][1] *= e0;
+        acc[t][2] *= e1;
+        acc[t][3] *= e1;
+      }
+      mma3<NB>(acc, 0, 16 * band + 16, 0, NB,
+               [&](int r, int k) { return ms[k * LDM + 16 * band + r]; },
+               [&](int k, int col) { return xs[k * LX + pc + col]; });
+#pragma unroll
+      for (int t = 0; t < NB; ++t) {
+        const int col = pc + 8 * t + 2 * q;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 16 * band + g + 8 * hf;
+          if (i >= len) continue;
+          float* dst = y + (((size_t)b * S + s0 + i) * H + h) * P + p0;
+          if (col < pw) dst[col] = acc[t][2 * hf];
+          if (col + 1 < pw) dst[col + 1] = acc[t][2 * hf + 1];
+        }
+      }
+    }
+    __syncthreads();                // C, cbt, dt and hs read; the other x buffer free
+    if constexpr (AB == 1) {
+      if (more) stage_a(c + 1);
+      cp_async_commit();
+    }
+
+    // 3. the state entering the next chunk of the span
+    if (more) {
+      cp_async_wait<1>();           // group B of c
+      __syncthreads();
+      state_update<PT>(hs, LC, xs, bs, LB, w, *decay, N32);
+      __syncthreads();              // B read
+      if (c + 2 < c1) stage_b(c + 1);
+    }
+    cp_async_commit();
+  }
 }
 
 // Makes `device` current for one launch and gives the caller's device back.
@@ -273,35 +764,133 @@ struct DeviceGuard {
   }
 };
 
+// Stages of the state kernel's panels: two where they fit.
+int state_stages(int N, int pt) {
+  return state_floats(N, pt, 2) * (int)sizeof(float) <= SMEM_LIMIT ? 2 : 1;
+}
+
+// The state kernel's dynamic shared memory: its spans' blocks' or, if more,
+// its C B^T blocks'.
+int state_smem_bytes(int N, int pt) {
+  const int floats = state_floats(N, pt, state_stages(N, pt));
+  return (floats > cb_floats(N) ? floats : cb_floats(N)) * (int)sizeof(float);
+}
+
+// Buffers for the out kernel's group A: two where they fit.
+int out_buffers(int N, int pt) {
+  return out_floats(N, pt, 2) * (int)sizeof(float) <= SMEM_LIMIT ? 2 : 1;
+}
+
+// The P tile: 64 up to N = 128, else 32.  The state kernel's warps hold at
+// most two (16-row band, 32-column) items each, PT / 16 * ceil(N / 32) <=
+// 2 * STATE_WARPS, which PT 64 meets only up to N = 128; PT 32 meets it, and
+// fits the out kernel's shared memory, up to MAX_N.
+constexpr int TILE_MAX_N = 128;
+static_assert(64 / 16 * (TILE_MAX_N / 32) <= 2 * STATE_WARPS, "PT 64 state items");
+static_assert(32 / 16 * (MAX_N / 32) <= 2 * STATE_WARPS, "PT 32 state items");
+static_assert(out_floats(TILE_MAX_N, 64, 1) * 4 <= SMEM_LIMIT, "PT 64 out smem");
+static_assert(out_floats(MAX_N, 32, 1) * 4 <= SMEM_LIMIT, "PT 32 out smem");
+int tile_of(int N) { return N <= TILE_MAX_N ? 64 : 32; }
+
+template <int PT>
+cudaError_t launch_spans(const float* x, const float* dt, const float* A, const float* Bm,
+                         const float* Cm, float* cbt, float* states, float* logdec,
+                         float* y, int batch, int S, int H, int P, int N,
+                         int n_spans, int x_vec, int bc_vec, bool out_phase,
+                         cudaStream_t stream) {
+  const dim3 grid(batch * H, (P + PT - 1) / PT, n_spans);
+  if (!out_phase) {
+    // C B^T rides in extra z-slices after the spans' blocks (2 per chunk)
+    const int nc = (S + Q - 1) / Q, per_z = grid.x * grid.y;
+    const dim3 with_cb(grid.x, grid.y, n_spans + (2 * nc * batch + per_z - 1) / per_z);
+    const int stages = state_stages(N, PT);
+    const int smem = state_smem_bytes(N, PT);
+    cudaError_t err = cudaFuncSetAttribute(ssd_scan_state_kernel<PT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    ssd_scan_state_kernel<PT><<<with_cb, STATE_THREADS, smem, stream>>>(
+        x, dt, A, Bm, Cm, cbt, states, logdec, batch, S, H, P, N, n_spans, stages,
+        x_vec, bc_vec);
+    return cudaGetLastError();
+  }
+  const int ab = out_buffers(N, PT);
+  const int smem = out_floats(N, PT, ab) * (int)sizeof(float);
+  const auto kernel = ab == 2 ? ssd_scan_out_kernel<PT, 2> : ssd_scan_out_kernel<PT, 1>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(x, dt, A, Bm, Cm, cbt, states, y, S, H, P, N, x_vec,
+                                          bc_vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_spans_tiled(int pt, const float* x, const float* dt, const float* A,
+                               const float* Bm, const float* Cm, float* cbt,
+                               float* states, float* logdec, float* y, int batch, int S,
+                               int H, int P, int N, int n_spans, int x_vec, int bc_vec,
+                               bool out_phase, cudaStream_t stream) {
+  if (pt == 64)
+    return launch_spans<64>(x, dt, A, Bm, Cm, cbt, states, logdec, y, batch, S, H, P, N,
+                            n_spans, x_vec, bc_vec, out_phase, stream);
+  return launch_spans<32>(x, dt, A, Bm, Cm, cbt, states, logdec, y, batch, S, H, P, N, n_spans,
+                          x_vec, bc_vec, out_phase, stream);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block at state size N, in bytes.
-int ssd_smem_bytes(int N) { return (int)(smem_floats(N) * sizeof(float)); }
+// Dynamic shared memory of one block of a phase (0 state, 1 pass, 2 out) at
+// state size N, in bytes; -1 for another phase.
+int ssd_smem_bytes(int phase, int N) {
+  const int t = tile_of(N);
+  switch (phase) {
+    case 0: return state_smem_bytes(N, t);
+    case 1: return 0;
+    case 2: return out_floats(N, t, out_buffers(N, t)) * (int)sizeof(float);
+    default: return -1;
+  }
+}
 
 // x (batch, S, H, P), dt (batch, S, H), A (H,), Bm and Cm (batch, S, N),
 // h0 (batch, H, P, N) or null; y (batch, S, H, P), hout (batch, H, P, N).
-// All float32 and contiguous; 0 < N <= 256.
+// Scratch from the caller: cbt (batch, ceil(S / 64), 64, 64), states
+// (batch·H, n_spans, P, N) and logdec (batch·H, n_spans) with n_spans =
+// ceil(ceil(S / 64) / 4).  All float32 and contiguous; 0 < N <= 256.
 int ssd_forward(const void* x, const void* dt, const void* A, const void* Bm,
-                const void* Cm, const void* h0, void* y, void* hout, int batch,
-                int S, int H, int P, int N, int device, void* stream) {
+                const void* Cm, const void* h0, void* y, void* hout, void* cbt,
+                void* states, void* logdec, int batch, int S, int H, int P, int N,
+                int device, void* stream) {
   if (batch <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || N > MAX_N ||
-      (long long)batch * H > INT_MAX || (P + PT - 1) / PT > 65535)
+      (long long)batch * H > INT_MAX || (long long)P * N > INT_MAX)
+    return cudaErrorInvalidValue;
+  const int nc = (S + Q - 1) / Q, n_spans = (nc + SPAN - 1) / SPAN;
+  const int tile = tile_of(N);
+  const int PN = P * N;
+  if (batch > 65535 || (P + tile - 1) / tile > 65535 || n_spans > 65535 ||
+      (PN + THREADS - 1) / THREADS > 65535)
     return cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  const int smem = ssd_smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *xf = static_cast<const float*>(x), *dtf = static_cast<const float*>(dt),
+              *Af = static_cast<const float*>(A), *Bf = static_cast<const float*>(Bm),
+              *Cf = static_cast<const float*>(Cm);
+  float *cbtf = static_cast<float*>(cbt), *stf = static_cast<float*>(states),
+        *ldf = static_cast<float*>(logdec);
+  const int x_vec = P % 4 == 0 && aligned16(x);
+  const int bc_vec = N % 4 == 0 && aligned16(Bm) && aligned16(Cm);
+
+  cudaError_t err = launch_spans_tiled(tile, xf, dtf, Af, Bf, Cf, cbtf, stf, ldf, nullptr, batch,
+                                       S, H, P, N, n_spans, x_vec, bc_vec, false, s);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * H, (P + PT - 1) / PT);
-  ssd_scan_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const float*>(Bm),
-      static_cast<const float*>(Cm), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(hout), S, H, P, N);
-  return cudaGetLastError();
+  ssd_scan_pass_kernel<<<dim3(batch * H, (PN + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+      static_cast<const float*>(h0), stf, ldf, static_cast<float*>(hout), PN, n_spans);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_spans_tiled(tile, xf, dtf, Af, Bf, Cf, cbtf, stf, ldf, static_cast<float*>(y),
+                            batch, S, H, P, N, n_spans, x_vec, bc_vec, true, s);
 }
 
 }  // extern "C"

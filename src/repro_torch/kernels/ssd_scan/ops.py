@@ -9,12 +9,14 @@ reference wrapper's own fallback); CUDA tensors launch the hand-written
 kernel in ``csrc/ssd_scan.cu`` on the current stream, or raise.  There is
 no fallback from one to the other.
 
-The kernel reads the model layout itself, so the reference's two
-``moveaxis`` copies to a head-major layout are gone.  Its chunk length is
-its own (64, for shared memory); ``chunk`` only keeps the reference's
-contract that ``min(chunk, S)`` divides S.  ``LAUNCHES`` counts kernel
-launches (CPython's GIL keeps the single ``+=`` whole across the serving
-path's consumer threads).
+The kernels read the model layout themselves, so the reference's two
+``moveaxis`` copies to a head-major layout are gone.  Their chunk length is
+their own (64); ``chunk`` only keeps the reference's contract that
+``min(chunk, S)`` divides S.  One call launches three CUDA kernels (span-local
+states with C Bᵀ per chunk beside them, state passing across spans, output;
+see the source's note) on scratch this wrapper allocates.  ``LAUNCHES`` counts
+calls that launch them, one per call (CPython's GIL keeps the single
+``+=`` whole across the serving path's consumer threads).
 """
 
 from __future__ import annotations
@@ -25,10 +27,13 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["ssd_scan", "chunk_length", "smem_bytes", "LAUNCHES", "MAX_STATE"]
+__all__ = ["ssd_scan", "chunk_length", "smem_bytes", "LAUNCHES", "MAX_STATE", "PHASES"]
 
 LAUNCHES = {"ssd_scan": 0}
-MAX_STATE = 256                 # the kernel's largest N (shared memory)
+MAX_STATE = 256                 # the kernels' largest N (shared memory)
+PHASES = ("state", "pass", "out")     # the CUDA kernels of one call, in order
+Q = 64                          # the kernels' chunk length
+SPAN = 4                        # the kernels' chunks per span
 
 _lib: ctypes.CDLL | None = None
 
@@ -38,9 +43,9 @@ def _kernels() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.library("ssd_scan")
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_forward.argtypes = [ptr] * 8 + [i] * 6 + [ptr]
+        lib.ssd_forward.argtypes = [ptr] * 11 + [i] * 6 + [ptr]
         lib.ssd_forward.restype = ctypes.c_int
-        lib.ssd_smem_bytes.argtypes = [i]
+        lib.ssd_smem_bytes.argtypes = [i, i]
         lib.ssd_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -98,19 +103,25 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
         raise ValueError(f"no kernel for tensors on {x.device}")
     B, S, H, P = x.shape
     N = Bm.shape[-1]
+    n_chunks = -(-S // Q)
+    n_spans = -(-n_chunks // SPAN)
     y = torch.empty_like(x)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    cbt = torch.empty((B, n_chunks, Q, Q), dtype=torch.float32, device=x.device)
+    states = torch.empty((B * H, n_spans, P, N), dtype=torch.float32, device=x.device)
+    logdec = torch.empty((B * H, n_spans), dtype=torch.float32, device=x.device)
     err = _kernels().ssd_forward(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
-        B, S, H, P, N, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(), cbt.data_ptr(),
+        states.data_ptr(), logdec.data_ptr(), B, S, H, P, N, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t {err}")
     LAUNCHES["ssd_scan"] += 1
     return y, h
 
 
-def smem_bytes(n: int) -> int:
-    """Dynamic shared memory of one kernel block at state size ``n``, in
-    bytes (as the kernel's source computes it)."""
-    return _kernels().ssd_smem_bytes(n)
+def smem_bytes(n: int) -> dict[str, int]:
+    """Dynamic shared memory of one block of each phase at state size ``n``,
+    in bytes (as the kernels' source computes it)."""
+    return {name: _kernels().ssd_smem_bytes(i, n) for i, name in enumerate(PHASES)}

@@ -225,12 +225,15 @@ def _ssd_inputs(b, s, h, p, n, device, seed=0, with_h0=False):
 
 
 # (b, s, h, p, n, chunk, h0): the Mamba2-130M serving shape, a ragged S
-# against the kernel's 64-position chunk, h0 given, P/N/H off the tiles
+# against the kernels' 64-position chunk, h0 given, P/N/H off the tiles;
+# several 256-position spans with a ragged last span and h0, and several
+# spans at MAX_STATE
 @pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", [
     (4, 1024, 24, 64, 128, 256, False), (1, 100, 24, 64, 128, 256, False),
     (2, 256, 3, 64, 128, 256, True), (2, 100, 5, 20, 33, 100, True),
     (1, 1, 1, 1, 1, 1, False), (3, 192, 7, 48, 16, 64, False),
-    (1, 130, 2, 16, 256, 130, True)])
+    (1, 130, 2, 16, 256, 130, True), (2, 700, 5, 64, 128, 700, True),
+    (1, 1024, 2, 32, 256, 256, True)])
 def test_ssd_scan_kernel_matches_plain(device, b, s, h, p, n, chunk, with_h0):
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
@@ -260,6 +263,42 @@ def test_ssd_scan_kernel_keeps_digits_where_heads_decay_fast(device):
     want_y, want_h = ssd_ref(*(t.double() for t in (x, dt, A, Bm, Cm)))
     torch.testing.assert_close(y.double(), want_y, rtol=SSD_TOL, atol=SSD_TOL)
     torch.testing.assert_close(hT.double(), want_h, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_scan_takes_operands_off_16_byte_alignment(device):
+    """x, B and C one element into their storage: not 16-byte aligned, so
+    the kernels stage them (and the span states) with plain loads instead of
+    cp.async."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(2, 600, 3, 64, 128, device, seed=4, with_h0=True)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    xs, Bs, Cs = shifted(x), shifted(Bm), shifted(Cm)
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in (xs, Bs, Cs))
+    y, hT = ssd_ops.ssd_scan(xs, dt, A, Bs, Cs, chunk=600, h0=h0)
+    want_y, want_h = ssd_ref(x, dt, A, Bm, Cm, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(hT, want_h, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("n", [16, 128, 256])
+def test_ssd_scan_smem_bytes_reports_every_phase_within_the_limit(device, n):
+    """One entry per CUDA kernel of a call, each within a block's 227 KB of
+    dynamic shared memory; the state-passing phase uses none."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    smem = ssd_ops.smem_bytes(n)
+    assert tuple(smem) == ssd_ops.PHASES == ("state", "pass", "out")
+    assert smem["pass"] == 0
+    assert all(0 <= v <= 227 * 1024 for v in smem.values())
+    assert min(smem["state"], smem["out"]) > 0
 
 
 def test_ssd_scan_wrapper_rejects_what_the_kernel_does_not_take(device):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.ssd_scan import ops as jax_ops
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref
@@ -137,3 +138,95 @@ def test_wrapper_checks_what_the_kernel_takes():
         ops.ssd_scan(*(t.to("meta") for t in (x, dt, A, Bm, Cm)), chunk=16)
     with pytest.raises(ValueError, match="empty"):
         ops.ssd_scan(x[:, :0], dt[:, :0], A, Bm[:, :0], Cm[:, :0], chunk=16)
+
+
+def _tf32_cut(t):
+    """float32 ``t`` with its 13 low mantissa bits cleared: TF32 by truncation."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_mm(a, b, split):
+    """``a @ b`` as K4's tensor-core products compute it: each operand cut to
+    TF32 (hi), and with ``split`` the rest of it (lo = v - hi, which the
+    tensor core cuts to TF32 as well) in two more products, the small terms
+    a_lo b_hi + a_hi b_lo summed apart before they join a_hi b_hi; f32 sums."""
+    ah, bh = _tf32_cut(a), _tf32_cut(b)
+    if not split:
+        return ah @ bh
+    return ah @ bh + (_tf32_cut(a - ah) @ bh + ah @ _tf32_cut(b - bh))
+
+
+def _kernel_arithmetic(x, dt, A, Bm, Cm, h0, split):
+    """K4's four phases on the CPU, every product through ``_tf32_mm``:
+    C Bᵀ once per chunk; each span's local state as one product over the
+    span, weighted by exp of suffix sums; the state passed across spans; then
+    per chunk y = (C Bᵀ ⊙ L)(dt·x) + exp(cum) C hᵀ and the state update for
+    all but a span's last chunk.  Decays come from segment sums (cumulative
+    sums of the masked a), never from differences of running sums."""
+    b, s, h, p = x.shape
+    n, q, span = Bm.shape[-1], ops.Q, ops.SPAN
+    nc = -(-s // q)
+    pad = nc * q - s
+    xs = F.pad(x, (0, 0, 0, 0, 0, pad)).reshape(b, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    dts = F.pad(dt, (0, 0, 0, pad)).reshape(b, nc, q, h).permute(0, 3, 1, 2)
+    Bs = F.pad(Bm, (0, 0, 0, pad)).reshape(b, nc, q, n)
+    Cs = F.pad(Cm, (0, 0, 0, pad)).reshape(b, nc, q, n)
+    a = dts * A[None, :, None, None]                               # (b, h, nc, q)
+    lower = torch.ones(q, q, dtype=torch.bool).tril()
+    strict = lower & ~torch.eye(q, dtype=torch.bool)
+    seg = torch.cumsum(torch.where(strict, a[..., :, None], 0.0), dim=-2)   # [i][j]
+    cum = torch.cumsum(a, dim=-1)
+    sfx = seg[..., -1, :]                                          # sum_{t > j} a_t
+    xdt = xs * dts[..., None]
+    cb = torch.where(lower, _tf32_mm(Cs, Bs.transpose(-1, -2), split), 0.0)
+    M = torch.where(lower, cb[:, None] * torch.exp(seg), 0.0)
+    spans = [range(k * span, min(nc, (k + 1) * span)) for k in range(-(-nc // span))]
+
+    local, logdec = [], []
+    for chunks in spans:
+        c0, c1 = chunks.start, chunks.stop
+        later = torch.flip(torch.cumsum(torch.flip(cum[..., c0:c1, -1], [-1]), -1), [-1])
+        later = torch.cat([later[..., 1:], torch.zeros_like(later[..., :1])], -1)
+        coef = dts[..., c0:c1, :] * torch.exp(sfx[..., c0:c1, :] + later[..., None])
+        xw = (xs[:, :, c0:c1] * coef[..., None]).reshape(b, h, -1, p)
+        local.append(_tf32_mm(xw.transpose(-1, -2), Bs[:, None, c0:c1].reshape(b, 1, -1, n),
+                              split))
+        logdec.append(cum[..., c0:c1, -1].sum(-1))
+    hh = torch.zeros(b, h, p, n) if h0 is None else h0
+    h_in = []
+    for k in range(len(spans)):
+        h_in.append(hh)
+        hh = torch.exp(logdec[k])[..., None, None] * hh + local[k]
+    h_final = hh
+    ys = []
+    for k, chunks in enumerate(spans):
+        hh = h_in[k]
+        for c in chunks:
+            carry = _tf32_mm(Cs[:, None, c], hh.transpose(-1, -2), split)
+            ys.append(carry * torch.exp(cum[..., c, :, None]) + _tf32_mm(M[:, :, c], xdt[:, :, c],
+                                                                          split))
+            if c + 1 < chunks.stop:
+                w = torch.exp(sfx[..., c, :])
+                hh = torch.exp(cum[..., c, -1])[..., None, None] * hh + _tf32_mm(
+                    (xdt[:, :, c] * w[..., None]).transpose(-1, -2), Bs[:, None, c], split)
+    y = torch.stack(ys, dim=2).permute(0, 2, 3, 1, 4).reshape(b, nc * q, h, p)[:, :s]
+    return y, h_final
+
+
+def test_tf32_split_is_what_keeps_the_kernel_within_its_tolerance():
+    """Why K4 splits every product operand hi/lo: its arithmetic, emulated
+    on the CPU at a reduced shape that crosses spans with a ragged last
+    chunk, with h0 and fast-decaying heads (A x 4), meets TOL against the
+    float64 recurrence at every output with the split; one TF32 pass misses
+    it at more than a tenth of them."""
+    x, dt, A, Bm, Cm, h0 = _torch(_inputs(1, 300, 3, 64, 128, seed=3, with_h0=True))
+    A = 4 * A
+    y64, h64 = ssd_ref(*(t.double() for t in (x, dt, A, Bm, Cm)), h0=h0.double())
+
+    def outside(split):
+        y, hT = _kernel_arithmetic(x, dt, A, Bm, Cm, h0, split)
+        return (int(((y.double() - y64).abs() > TOL + TOL * y64.abs()).sum()),
+                int(((hT.double() - h64).abs() > TOL + TOL * h64.abs()).sum()))
+
+    assert outside(split=True) == (0, 0)
+    assert outside(split=False)[0] > y64.numel() // 10
