@@ -10,13 +10,17 @@ Phases, each printing JSON lines on standard output:
 * ``build``  — ``nvcc`` builds every CUDA source of the port for ``sm_90a``
   and reports each kernel's registers, shared memory and spills;
 * ``kernel`` — kernels K1 (``pairwise_sq_dists``) and K2 (``assign``) held
-  against their plain versions at the main path's shapes and a ragged one,
-  with CUDA-event times beside the bound and a library yardstick;
+  against their plain versions at the Mini-App's shapes and a ragged one,
+  with CUDA-event times beside the bound (and its share), K1's write rate,
+  K2's issue floor, each CUDA kernel's device time at the Mini-App's shapes
+  and a library yardstick; then K2 on planted ties (equal distances in
+  different k-slices, and exact hits), where the smaller index must win;
 * ``parity`` — 24 MiniBatch K-Means steps through the kernels and through
   the plain versions, both on the card;
 * ``stream`` — the Mini-App end to end (producer -> Broker ->
   ThreadedStreamingEngine -> ``torch://`` pilot -> MiniBatch K-Means) at
-  1,024 and 8,192 centroids, 200 messages of 16,000 x 9 points each;
+  1,024 and 8,192 centroids, 200 messages of 16,000 x 9 points each; K2
+  launched twice a message (``inertia``, ``minibatch_step``) and K1 never;
 * ``profile`` — a shorter stream run under ``torch.profiler``: device time
   by kernel and the device's busy share;
 * ``kernel-K3`` — kernel K3 (``flash_attention``: bf16 on the tensor cores,
@@ -71,6 +75,7 @@ N_POINTS, DIM = 16_000, 9             # paper message size (fig5) and dims (mini
 MODEL_SIZES = (1_024, 8_192)          # paper model sizes (fig6)
 N_MESSAGES, PARTITIONS = 200, 4       # paper messages and partitions per cell
 PARITY_STEPS = 24
+SPIN_MS_PER_CALL, SPIN_HZ = 0.2, 1.98e9      # cuda_ms's head start for the host; H100 SXM boost clock
 PROFILE_MESSAGES = 50
 N_CLUSTERS = 16
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, f32 outside the tensor cores
@@ -143,10 +148,16 @@ def clustered(rng: np.random.Generator, count: int) -> np.ndarray:
 
 
 def cuda_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
-    """Mean time of ``fn`` on the card, by CUDA events over ``iters`` calls."""
+    """Mean time of ``fn`` on the card, by CUDA events over ``iters`` calls
+    run back to back.  The card first spins for about SPIN_MS_PER_CALL a
+    call, before the first event, while the host queues the calls: where a
+    call's host time exceeds its kernels' (K1/K2 at 1,024 centroids on a
+    busy host), the events then time the kernels and not the host's issue
+    rate.  The spin itself is never inside the timed span."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(SPIN_MS_PER_CALL * 1e-3 * SPIN_HZ * iters))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -206,6 +217,34 @@ def bound(n: int, k: int, d: int, in_bytes_per_el: int, out_bytes: int,
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def issue_floor_ms(n: int, k: int, d: int, pair_ops: int) -> float:
+    """The least time the bit-equal arithmetic of K1/K2 can take: the
+    operations that ``bound`` counts, each issued as its own instruction
+    (products and sums unfused: a multiply-add is 2 instructions where the
+    f32 peak counts one FMA), at one instruction per f32 lane per cycle,
+    half the f32 peak."""
+    ops = 2.0 * n * k * d + 2.0 * (n + k) * d + pair_ops * n * k
+    return ops / (F32_OPS_PER_S / 2) * 1e3
+
+
+def device_ms_by_kernel(torch, fn, kernels, calls: int = 10) -> dict:
+    """Device ms a call of ``fn`` spends in each CUDA kernel named in
+    ``kernels`` (matched as whole names), from ``torch.profiler`` over
+    ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_time_rows(prof)
+    return {name: sum(r["device_ms"] for r in rows
+                      if re.search(rf"\b{name}\b", r["name"])) / calls
+            for name in kernels}
+
+
 # -- phases ----------------------------------------------------------------------
 
 def phase_device(torch) -> dict:
@@ -255,7 +294,8 @@ def phase_build(torch) -> dict:
     emit({"phase": "build", "kernel": "ssd_scan",
           "dynamic_smem_bytes": {f"n{n}": ssd_ops.smem_bytes(n) for n in (16, 128, 256)}})
     names = " ".join(k["symbol"] for k in kernels)
-    missing = [n for n in ("pairwise_sq_dists_kernel", "assign_kernel",
+    missing = [n for n in ("pairwise_sq_dists_kernel", "pairwise_sq_dists_tile_kernel",
+                           "assign_kernel", "assign_tile_kernel", "assign_combine_kernel",
                            "flash_attention_kernel", "flash_attention_bf16_kernel",
                            *(f"ssd_scan_{p}_kernel" for p in ssd_ops.PHASES))
                if n not in names]
@@ -271,6 +311,7 @@ def phase_kernels(torch) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
     failed = []
+    before = dict(ops.LAUNCHES)
     for n, k, d, dtype_name in KERNEL_SHAPES:
         dtype = getattr(torch, dtype_name)
         tol = TOLERANCE[dtype_name]
@@ -292,31 +333,87 @@ def phase_kernels(torch) -> dict:
         if dtype == torch.float32:
             library_ms = cuda_ms(torch, lambda: torch.cdist(
                 x, c, compute_mode="use_mm_for_euclid_dist"))
-        row = {
-            "phase": "kernel", "n": n, "k": k, "d": d, "dtype": dtype_name,
-            "tolerance": {"rtol": tol, "atol": tol * d},
-            "pairwise_sq_dists": {
-                "ok": k1_ok, "max_abs_err": float((got - want).abs().max()),
-                "bit_equal": bool(torch.equal(got, want)),
-                "ms": cuda_ms(torch, lambda: ops.pairwise_sq_dists(x, c)),
-                "plain_ms": cuda_ms(torch, lambda: ref.pairwise_sq_dists_ref(x, c)),
-                "library_ms": library_ms, "bound_ms": k1_bound, "bound_by": k1_by},
-            "assign": {
-                "ok": k2_ok, "max_abs_err": float((best - ref_best).abs().max()),
-                "label_mismatches": int((labels != ref_labels).sum()),
-                "ms": cuda_ms(torch, lambda: ops.assign(x, c)),
-                "plain_ms": cuda_ms(torch, lambda: ref.assign_ref(x, c)),
-                "library_ms": None, "bound_ms": k2_bound, "bound_by": k2_by},
-        }
+        k1 = {"ok": k1_ok, "max_abs_err": float((got - want).abs().max()),
+              "bit_equal": bool(torch.equal(got, want)),
+              "ms": cuda_ms(torch, lambda: ops.pairwise_sq_dists(x, c)),
+              "plain_ms": cuda_ms(torch, lambda: ref.pairwise_sq_dists_ref(x, c)),
+              "library_ms": library_ms, "bound_ms": k1_bound, "bound_by": k1_by}
+        k1["share_of_bound"] = k1_bound / k1["ms"]
+        k1["write_tb_per_s"] = n * k * 4 / (k1["ms"] * 1e-3) / 1e12
+        k2 = {"ok": k2_ok, "max_abs_err": float((best - ref_best).abs().max()),
+              "bit_equal": bool(torch.equal(best, ref_best) and torch.equal(labels, ref_labels)),
+              "label_mismatches": int((labels != ref_labels).sum()),
+              "ms": cuda_ms(torch, lambda: ops.assign(x, c)),
+              "plain_ms": cuda_ms(torch, lambda: ref.assign_ref(x, c)),
+              "library_ms": None, "bound_ms": k2_bound, "bound_by": k2_by,
+              "issue_floor_ms": issue_floor_ms(n, k, d, pair_ops=5),
+              "slices": -(-k // ops.assign_slice_width(n, k, d, x.dtype, x.device.index))}
+        k2["share_of_bound"] = k2_bound / k2["ms"]
+        if (n, d, dtype_name) == (N_POINTS, DIM, "float32"):
+            # device time by CUDA kernel: ms above is a back-to-back call
+            # rate, which the host's issue time sets where it exceeds the
+            # kernels' own
+            k1["device_ms"] = device_ms_by_kernel(
+                torch, lambda: ops.pairwise_sq_dists(x, c), ("pairwise_sq_dists_kernel",))
+            k2["device_ms"] = device_ms_by_kernel(
+                torch, lambda: ops.assign(x, c), ("assign_kernel", "assign_combine_kernel"))
+        row = {"phase": "kernel", "n": n, "k": k, "d": d, "dtype": dtype_name,
+               "tolerance": {"rtol": tol, "atol": tol * d},
+               "pairwise_sq_dists": k1, "assign": k2}
         emit(row)
         results[(n, k, d, dtype_name)] = row
         if not (k1_ok and k2_ok):
             failed.append((n, k, d, dtype_name))
         del x, c, want, got, labels, best, ref_labels, ref_best, picked
         torch.cuda.empty_cache()
+    for case in ("ties-across-slices", "exact-hits"):
+        row = planted_ties(torch, ops, ref, case)
+        emit(row)
+        if not row["ok"]:
+            failed.append(case)
     if failed:
         raise AssertionError(f"kernel disagrees with its plain version at {failed}")
+    results["launches"] = {name: ops.LAUNCHES[name] - before[name] for name in before}
     return results
+
+
+def planted_ties(torch, ops, ref, case: str) -> dict:
+    """K2 at the Mini-App's largest shape on small-integer points and
+    centroids (every distance exact in f32).  ``ties-across-slices``: each
+    k-slice's first centroid is copied to the end of the slice before it
+    (equal distances in different slices); ``exact-hits``: every slice is
+    a copy of the first and every third point a copy of a centroid (best 0,
+    tied in every slice).  Passes when labels and best
+    equal ``assign_ref``'s bit for bit and every label is the smallest index
+    among its row's minima."""
+    n, k, d = N_POINTS, MODEL_SIZES[1], DIM
+    dev = torch.device(DEVICE)
+    width = ops.assign_slice_width(n, k, d, torch.float32, torch.cuda.current_device())
+    rng = np.random.default_rng([SEED, 6])
+    c = rng.integers(-3, 4, (k, d)).astype(np.float32)
+    x = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    if case == "ties-across-slices":
+        for k0 in range(width, k, width):
+            c[k0 - 1] = c[k0]
+    else:
+        c = c[np.arange(k) % width]
+        x[::3] = c[rng.integers(0, k, x[::3].shape[0])]
+    x, c = torch.from_numpy(x).to(dev), torch.from_numpy(c).to(dev)
+    labels, best = ops.assign(x, c)
+    ref_labels, ref_best = ref.assign_ref(x, c)
+    d2 = ref.pairwise_sq_dists_ref(x, c)
+    first = (d2 == d2.min(dim=1, keepdim=True).values).int().argmax(dim=1)
+    torch.cuda.synchronize()
+    tied = int(((d2 == d2.min(dim=1, keepdim=True).values).sum(dim=1) > 1).sum())
+    hits = int((best == 0).sum())
+    ok = bool(torch.equal(labels, ref_labels) and torch.equal(best, ref_best)
+              and torch.equal(labels.long(), first))
+    if case == "exact-hits":
+        ok = ok and hits >= x.shape[0] // 3
+    return {"phase": "kernel-ties", "case": case, "n": n, "k": k, "d": d,
+            "slice_width": width, "slices": -(-k // width), "rows_with_ties": tied,
+            "rows_at_zero": hits, "ok": ok,
+            "label_mismatches": int((labels.long() != first).sum())}
 
 
 def phase_parity(torch) -> dict:
@@ -428,9 +525,12 @@ def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES
         problems.append("centroids not finite or of the wrong shape")
     if counts.sum() != n_messages * N_POINTS:
         problems.append(f"counts sum to {counts.sum()}")
-    for name, count in launches.items():
-        if count < n_messages:
-            problems.append(f"{name} launched {count} < {n_messages} times")
+    # inertia and minibatch_step each take the fused assignment (K2); the
+    # (n, k) matrix (K1) is not on the stream's path
+    if launches["assign"] < 2 * n_messages:
+        problems.append(f"assign launched {launches['assign']} < 2 x {n_messages} times")
+    if launches["pairwise_sq_dists"] != 0:
+        problems.append(f"pairwise_sq_dists launched {launches['pairwise_sq_dists']} times")
     if problems:
         raise AssertionError(f"{phase} at {n_centroids} centroids: {problems}")
     return out
@@ -568,21 +668,12 @@ def ssd_bound(b: int, s: int, h: int, p: int, n: int, with_h0: bool):
 
 
 def ssd_phase_ms(torch, fn, calls: int = 10) -> dict:
-    """Device ms a call of each of K4's CUDA kernels (``ssd_ops.PHASES``),
-    from ``torch.profiler`` over ``calls`` calls of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device ms a call of each of K4's CUDA kernels (``ssd_ops.PHASES``)."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = device_time_rows(prof)
-    return {ph: sum(r["device_ms"] for r in rows if f"ssd_scan_{ph}_kernel" in r["name"]) / calls
-            for ph in ssd_ops.PHASES}
+    by_kernel = device_ms_by_kernel(
+        torch, fn, [f"ssd_scan_{ph}_kernel" for ph in ssd_ops.PHASES], calls)
+    return {ph: by_kernel[f"ssd_scan_{ph}_kernel"] for ph in ssd_ops.PHASES}
 
 
 def phase_kernel_k4(torch, smi: str) -> dict:
@@ -917,7 +1008,9 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": {"n": N_POINTS, "k": MODEL_SIZES[0], "d": DIM, "dtype": "float32"},
-            "launches_k8192": streams[MODEL_SIZES[1]]["launches"][name]})
+            "launches_k8192": streams[MODEL_SIZES[1]]["launches"][name],
+            "launches_kernel_phase": kernels["launches"][name],
+            "share_of_bound": row["share_of_bound"], "device_ms": row["device_ms"]})
     row = k3[FA_SERVING + ("bfloat16",)]
     bh, bkv, s, dh = FA_SERVING
     summary.append({

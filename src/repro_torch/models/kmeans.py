@@ -1,8 +1,9 @@
 """MiniBatch K-Means in PyTorch — the paper's representative streaming workload.
 
 Ports ``repro.models.kmeans``.  Phase 1 (distances between all n points and
-c centroids, O(n·c·d)) runs on the ``kmeans_distance`` kernels for CUDA
-tensors and on their plain versions for CPU tensors; phase 2 is the
+c centroids, O(n·c·d), reduced to each point's nearest centroid) runs on the
+fused ``kmeans_distance`` assignment kernel (K2) for CUDA tensors and on its
+plain version for CPU tensors; phase 2 is the
 MiniBatch update (Sculley 2010): per-centroid counts give a decaying rate
 ``eta = m_batch / count``.
 
@@ -61,11 +62,18 @@ def state_to_numpy(state: KMeansState) -> tuple[np.ndarray, np.ndarray]:
 
 
 def assign(points: torch.Tensor, centroids: torch.Tensor):
-    """(labels (n,), sq_dist_to_assigned (n,)) from the full (n, c) distance
-    matrix (kernel K1), as the reference does."""
-    d2 = kd_ops.pairwise_sq_dists(points, centroids)
-    best, labels = torch.min(d2, dim=1)
-    return labels, best
+    """(labels (n,) int32, sq_dist_to_assigned (n,) float32) from the fused
+    assignment (kernel K2 on the card, ``assign_ref`` on the CPU).
+
+    The reference takes argmin and min of the full (n, c) distance matrix;
+    its kernel docstring (``repro/kernels/kmeans_distance/kernel.py``) says
+    the fused kernel exists because the K-Means inner loop needs only the
+    argmin.  K2 shares the distance arithmetic of the matrix's kernel and of
+    the plain versions bit for bit and takes the smallest index on an exact
+    tie, as ``argmin`` does, so its labels and distances are the matrix
+    path's; int32 labels, as ``jnp.argmin`` gives.  The (n, c) matrix is no
+    longer written on the main path."""
+    return kd_ops.assign(points, centroids)
 
 
 def update(state: KMeansState, points: torch.Tensor,
@@ -98,9 +106,9 @@ def minibatch_step(state: KMeansState, points: torch.Tensor) -> KMeansState:
 def inertia(points: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Mean squared distance to the assigned centroid (clustering quality).
 
-    Takes ``best`` from the fused assignment (kernel K2): the minimum of the
-    same distances, without writing the (n, c) matrix."""
-    _, best = kd_ops.assign(points, centroids)
+    Takes ``best`` from ``assign`` (kernel K2 on the card): the reference's
+    minimum of the same distances, without writing the (n, c) matrix."""
+    _, best = assign(points, centroids)
     return best.mean()
 
 

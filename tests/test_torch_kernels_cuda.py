@@ -15,6 +15,8 @@ from repro_torch.kernels.kmeans_distance import ops
 from repro_torch.kernels.kmeans_distance.ref import assign_ref, pairwise_sq_dists_ref
 from repro_torch.models import kmeans
 
+from _kmeans_ties import planted_ties
+
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}    # tests/test_kernels.py's
 
@@ -61,6 +63,61 @@ def test_f32_kernels_are_bit_equal_to_plain(device):
     assert torch.equal(best, ref_best) and torch.equal(labels, ref_labels)
 
 
+@pytest.mark.parametrize("n,k,d", [(16000, 8192, 9), (16000, 1024, 9), (5000, 1031, 9),
+                                   (3000, 1031, 20)])
+def test_assign_ties_across_slices_take_the_smallest_index(device, n, k, d):
+    width = ops.assign_slice_width(n, k, d, torch.float32,
+                                   torch.cuda.current_device())
+    assert -(-k // width) > 1, "the planted ties need more than one k-slice"
+    x, c = (torch.from_numpy(a).to(device) for a in planted_ties(n, k, d, width))
+    labels, best = ops.assign(x, c)
+    ref_labels, ref_best = assign_ref(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(labels, ref_labels) and torch.equal(best, ref_best)
+    assert (best[::3] == 0).all()
+    # the smallest index among the row's minima
+    d2 = pairwise_sq_dists_ref(x, c)
+    first = (d2 == d2.min(dim=1, keepdim=True).values).int().argmax(dim=1)
+    assert torch.equal(labels.long(), first)
+
+
+@pytest.mark.parametrize("n,k,d", [(16000, 4099, 9), (777, 1031, 3), (2000, 4099, 20),
+                                   (70, 4099, 16)])
+def test_assign_at_k_off_the_slice_and_vector_widths(device, n, k, d):
+    """k prime: no slice width, vector width or panel of 64 divides it."""
+    x, c = _inputs(n, k, d, torch.float32, device, seed=5)
+    labels, best = ops.assign(x, c)
+    ref_labels, ref_best = assign_ref(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(labels, ref_labels) and torch.equal(best, ref_best)
+
+
+@pytest.mark.parametrize("n,k,d", [(1000, 1025, 9), (1000, 1026, 9), (1000, 1027, 9),
+                                   (129, 5, 16), (4_194_305, 5, 3)],
+                         ids=["k=1mod4", "k=2mod4", "k=3mod4", "k=5,d=16", "n-past-old-grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_pairwise_ragged_vector_stores_and_long_n(device, n, k, d, dtype):
+    """k not a multiple of 4 takes scalar stores at the edge; n past K1's
+    old 65,535 x 64-row grid runs on the grid-stride design."""
+    x, c = _inputs(n, k, d, dtype, device, seed=6)
+    got = ops.pairwise_sq_dists(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pairwise_sq_dists_ref(x, c))
+
+
+def test_pairwise_takes_an_output_off_16_byte_alignment(device):
+    """An output one float into its storage takes scalar stores."""
+    x, c = _inputs(300, 256, 9, torch.float32, device, seed=7)
+    lib = ops._kernels()
+    out = torch.empty(300 * 256 + 1, device=device)[1:].view(300, 256)
+    assert out.data_ptr() % 16
+    err = lib.kd_pairwise_sq_dists(x.data_ptr(), c.data_ptr(), out.data_ptr(), 300, 256, 9,
+                                   0, out.device.index,
+                                   torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.equal(out, pairwise_sq_dists_ref(x, c))
+
+
 def test_assign_tie_takes_smallest_index(device):
     x = torch.zeros((3, 4), device=device)
     c = torch.tensor([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 0, 1.0]], device=device)
@@ -87,8 +144,9 @@ def test_minibatch_step_runs_on_the_card(device):
     state = kmeans.minibatch_step(state, pts)
     loss = kmeans.inertia(pts, state.centroids)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["pairwise_sq_dists"] == before["pairwise_sq_dists"] + 1
-    assert ops.LAUNCHES["assign"] == before["assign"] + 1
+    # both take the fused assignment (K2); the (n, k) matrix (K1) is not written
+    assert ops.LAUNCHES["pairwise_sq_dists"] == before["pairwise_sq_dists"]
+    assert ops.LAUNCHES["assign"] == before["assign"] + 2
     assert float(state.counts.sum()) == 1000 and torch.isfinite(loss)
 
 

@@ -56,6 +56,31 @@ def test_assign_matches_jax_model_assign():
     np.testing.assert_array_equal(labels.numpy(), np.asarray(j_labels))
 
 
+def test_main_path_never_writes_the_distance_matrix(monkeypatch):
+    """assign, minibatch_step and inertia take the fused assignment (K2 on
+    the card); the (n, k) matrix (K1) is not on the main path."""
+    def refuse(*_):
+        raise AssertionError("pairwise_sq_dists called on the main path")
+
+    monkeypatch.setattr(tkm.kd_ops, "pairwise_sq_dists", refuse)
+    centroids, msgs = _stream(seed=2)
+    state = tkm.state_from_numpy(centroids, np.zeros(CENTROIDS, np.float32), device="cpu")
+    pts = torch.from_numpy(msgs[0])
+    labels, best = tkm.assign(pts, state.centroids)
+    state = tkm.minibatch_step(state, pts)
+    loss = tkm.inertia(pts, state.centroids)
+    assert labels.shape == best.shape == (POINTS,) and torch.isfinite(loss)
+    assert float(state.counts.sum()) == POINTS
+
+
+def test_assign_returns_int32_labels_as_the_reference():
+    centroids, msgs = _stream(seed=3)
+    labels, best = tkm.assign(torch.from_numpy(msgs[0]), torch.from_numpy(centroids))
+    j_labels, _ = jkm.assign(jnp.asarray(msgs[0]), jnp.asarray(centroids))
+    assert labels.dtype == torch.int32 and np.asarray(j_labels).dtype == np.int32
+    assert best.dtype == torch.float32
+
+
 @pytest.mark.parametrize("n,c,d", [(16000, 1024, 9), (16000, 8192, 9), (512, 32, 9)])
 def test_flops_estimate_matches_jax(n, c, d):
     assert tkm.flops_estimate(n, c, d) == jkm.flops_estimate(n, c, d)

@@ -22,6 +22,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.kmeans_distance import ops as pt_ops
 from repro_torch.kernels.kmeans_distance.ref import assign_ref, pairwise_sq_dists_ref
 
+from _kmeans_ties import planted_ties
+
 # the sweep and tolerances of tests/test_kernels.py
 DIST_SHAPES = [(64, 16, 9), (256, 128, 9), (128, 300, 32), (512, 64, 130)]
 ASSIGN_SHAPES = [(64, 16, 9), (256, 100, 17)]
@@ -62,6 +64,85 @@ def test_assign_matches_jax(n, k, d):
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(d2[np.arange(n), np.asarray(j_labels)], best.numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+# -- K2's k-slices and their combine, emulated ----------------------------------
+
+def _sliced_assign(x, c, width, lanes=4):
+    """K2 as the card runs it: ``assign_ref`` on each k-slice (each keeps the
+    first index of its minimum); then, as ``assign_combine_kernel`` does,
+    ``lanes`` threads a row each reduce a contiguous run of slices in order
+    with a strict <, and the runs are combined pairwise (shuffle offsets
+    1, 2, ...), the smaller index winning an equal distance."""
+    k = c.shape[0]
+    parts = [assign_ref(x, c[k0:k0 + width]) for k0 in range(0, k, width)]
+    parts = [(lab + k0, b) for (lab, b), k0 in zip(parts, range(0, k, width))]
+    run = -(-len(parts) // lanes)
+    n = x.shape[0]
+    lane_l = [torch.full((n,), 2 ** 31 - 1, dtype=torch.int32) for _ in range(lanes)]
+    lane_b = [torch.full((n,), float("inf")) for _ in range(lanes)]
+    for g in range(lanes):
+        for lab, b in parts[g * run:(g + 1) * run]:
+            take = (b < lane_b[g]) | (lane_l[g] == 2 ** 31 - 1)
+            lane_l[g] = torch.where(take, lab, lane_l[g])
+            lane_b[g] = torch.where(take, b, lane_b[g])
+    off = 1
+    while off < lanes:
+        new_l, new_b = list(lane_l), list(lane_b)
+        for g in range(lanes):
+            ol, ob = lane_l[g ^ off], lane_b[g ^ off]
+            take = (ob < lane_b[g]) | ((ob == lane_b[g]) & (ol < lane_l[g]))
+            new_l[g] = torch.where(take, ol, lane_l[g])
+            new_b[g] = torch.where(take, ob, lane_b[g])
+        lane_l, lane_b = new_l, new_b
+        off *= 2
+    return lane_l[0], lane_b[0]
+
+
+# the widths the wrapper picks for the Mini-App's shapes on a card of 132 SMs
+# with 7 (register design) or 12 (general design) resident blocks each, and
+# odd widths that cut the planted ties elsewhere
+@pytest.mark.parametrize("n,k,d,width", [
+    (16000, 1024, 9, pt_ops.slice_width(16000, 1024, 9, 132 * 7)),
+    (16000, 8192, 9, pt_ops.slice_width(16000, 8192, 9, 132 * 7)),
+    (600, 130, 20, pt_ops.slice_width(600, 130, 20, 132 * 12)),
+    (512, 100, 9, 7), (512, 100, 9, 1), (300, 65, 3, 64), (200, 30, 4, 10)])
+def test_slice_combine_matches_assign_ref_and_jax(n, k, d, width):
+    x, c = planted_ties(n, k, d, width)
+    assert -(-k // width) > 1
+    labels, best = _sliced_assign(torch.from_numpy(x), torch.from_numpy(c), width)
+    ref_labels, ref_best = assign_ref(torch.from_numpy(x), torch.from_numpy(c))
+    assert torch.equal(labels, ref_labels) and torch.equal(best, ref_best)
+    assert (best[::3] == 0).all()
+    # first index of the minimum, as the JAX package's Pallas kernel gives it
+    j_labels, j_best = kd_ops.assign(jnp.asarray(x), jnp.asarray(c),
+                                     use_pallas=True, interpret=True)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(j_labels))
+    np.testing.assert_array_equal(best.numpy(), np.asarray(j_best))
+
+
+@pytest.mark.parametrize("n,k,d,slots", [(16000, 1024, 9, 924), (16000, 8192, 9, 924),
+                                         (16000, 8192, 9, 528), (8001, 1000, 130, 1584),
+                                         (64, 16, 9, 924), (10 ** 6, 8192, 9, 924),
+                                         (1, 1, 1, 1), (33, 65, 33, 1)])
+def test_slice_width_fills_the_card(n, k, d, slots):
+    """Slices cover k, fit the register design's shared memory, fill the
+    resident blocks about once where one wave can hold the grid, and the
+    general design's slices are whole 64-centroid panels."""
+    width = pt_ops.slice_width(n, k, d, slots)
+    slices = -(-k // width)
+    reg = d <= pt_ops.MAX_REG_DIM
+    tiles = -(-n // (pt_ops.REG_ROWS if reg else pt_ops.TILE_ROWS))
+    assert 1 <= width and (slices - 1) * width < k <= slices * width
+    if reg:
+        assert width <= pt_ops.KS_MAX
+    else:
+        assert width % pt_ops.PANEL == 0
+    least = -(-k // pt_ops.KS_MAX) if reg else 1
+    waves = -(-tiles * least // slots)          # the fewest the slices allow
+    assert -(-tiles * slices // slots) == waves
+    if reg and waves * slots // tiles <= k:
+        assert tiles * slices > waves * slots / 2   # the waves are mostly full
 
 
 def test_assign_tie_takes_smallest_index():
