@@ -23,6 +23,22 @@ Phases, each printing JSON lines on standard output:
   launched twice a message (``inertia``, ``minibatch_step``) and K1 never;
 * ``profile`` — a shorter stream run under ``torch.profiler``: device time
   by kernel and the device's busy share;
+* ``stream-rate`` — the stream at 1,024 centroids, open loop: appends paced
+  by the port's ``ConstantRate`` at half the msgs/s that ``stream`` read,
+  with L^px and the broker's lag (the latency at a sustainable rate);
+* ``sim-cells`` — the simulated Mini-App (``repro_torch.core.miniapp``) on
+  the grid of ``benchmarks/fig5_throughput.py``: serverless and wrangler,
+  1-16 partitions, 1,024 and 8,192 centroids, 40 messages each, on the
+  virtual clock (host only);
+* ``sim-kmeans`` — three simulated cells at the paper's size (serverless
+  and wrangler, 4 partitions, 16,000 x 9 points, 8,192 centroids, 200
+  messages, and the serverless cell again under a crash, a preemption, a
+  stall and a duplicate) whose per-message K-Means update runs on the card
+  through K2 (``KMeansMessageUpdate``), under ``torch.profiler``: each
+  message processed once, K2 twice a message and K1 never, the virtual
+  record equal to the same cell run without the update, the inertia falling,
+  and the final model and every message's inertia bit-equal to a replay of
+  the logged payloads through the plain versions;
 * ``kernel-K3`` — kernel K3 (``flash_attention``: bf16 on the tensor cores,
   f32 on the CUDA cores) held against its plain version ``mha_ref`` at the
   serving shape of Qwen2-0.5B (bf16 and f32) and a ragged one, with
@@ -77,7 +93,18 @@ N_MESSAGES, PARTITIONS = 200, 4       # paper messages and partitions per cell
 PARITY_STEPS = 24
 SPIN_MS_PER_CALL, SPIN_HZ = 0.2, 1.98e9      # cuda_ms's head start for the host; H100 SXM boost clock
 PROFILE_MESSAGES = 50
+# the fig5 grid (benchmarks/fig5_throughput.py), and the card-carrying cells
+SIM_GRID = [dict(machine=m, partitions=n, points=N_POINTS, centroids=c, n_messages=40,
+                 seed=3) for m in ("serverless", "wrangler") for c in MODEL_SIZES
+            for n in (1, 2, 4, 8, 16)]
+SIM_KMEANS = dict(partitions=PARTITIONS, points=N_POINTS, centroids=MODEL_SIZES[1],
+                  memory_mb=3008, n_messages=N_MESSAGES, seed=3)
+SIM_FAULTS = dict(events=[dict(t=30.0, kind="crash"), dict(t=60.0, kind="preempt"),
+                          dict(t=90.0, kind="stall", target=1, duration_s=20.0),
+                          dict(t=120.0, kind="duplicate", target=2)])
+SIM_KMEANS_CELLS = [("serverless", None), ("wrangler", None), ("serverless", SIM_FAULTS)]
 N_CLUSTERS = 16
+SIM_CENTERS = 3 * np.random.default_rng([SEED, DIM]).standard_normal((N_CLUSTERS, DIM))
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -139,12 +166,67 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def clustered(rng: np.random.Generator, count: int) -> np.ndarray:
-    """(count, N_POINTS, DIM) float32 points around N_CLUSTERS centers."""
-    centers = rng.normal(size=(N_CLUSTERS, DIM)) * 3
-    labels = rng.integers(0, N_CLUSTERS, (count, N_POINTS))
-    noise = rng.standard_normal((count, N_POINTS, DIM))
+def clustered(rng: np.random.Generator, count: int, n_points: int = N_POINTS,
+              centers: np.ndarray | None = None) -> np.ndarray:
+    """(count, n_points, DIM) float32 points around N_CLUSTERS centers, drawn
+    from ``rng`` first unless they are given."""
+    if centers is None:
+        centers = rng.normal(size=(N_CLUSTERS, DIM)) * 3
+    labels = rng.integers(0, N_CLUSTERS, (count, n_points))
+    noise = rng.standard_normal((count, n_points, DIM))
     return (centers[labels] + noise).astype(np.float32)
+
+
+def message_points(payload: dict) -> np.ndarray:
+    """A simulated message's (n_points, DIM) points, rebuilt on the host from
+    its ``{"n_points", "seed"}`` payload around the fixed SIM_CENTERS."""
+    rng = np.random.default_rng(payload["seed"])
+    return clustered(rng, 1, payload["n_points"], SIM_CENTERS)[0]
+
+
+class KMeansMessageUpdate:
+    """The real MiniBatch K-Means update as ``run_experiment``'s ``fn``: for
+    each message, its inertia under the model before the update
+    (``kmeans.inertia``), then ``kmeans.minibatch_step`` (K2 twice).  The
+    payloads are logged in the order they were processed, for ``replay``."""
+
+    def __init__(self, torch, n_centroids: int) -> None:
+        from repro_torch.models import kmeans
+
+        self.torch, self.kmeans = torch, kmeans
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        self.initial = kmeans.init_state(n_centroids, DIM, generator=gen, device=DEVICE,
+                                         scale=3.0)
+        self.state = self.initial
+        self.calls = 0
+        self.payloads: list[dict] = []
+        self.inertia: list = []
+
+    def points(self, payload: dict):
+        return self.torch.from_numpy(message_points(payload)).to(DEVICE)
+
+    def __call__(self, msgs) -> None:
+        self.calls += 1
+        for m in msgs:
+            pts = self.points(m.value)
+            self.inertia.append(self.kmeans.inertia(pts, self.state.centroids))
+            self.state = self.kmeans.minibatch_step(self.state, pts)
+            self.payloads.append(m.value)
+
+    def replay(self):
+        """The logged payloads, in order, from the same initial model through
+        the plain assignment ``assign_ref`` and the same update, on the card
+        (so the update's matrix product sums in the same order).  Returns the
+        model and each message's inertia, ``assign_ref``'s mean ``best``."""
+        from repro_torch.kernels.kmeans_distance.ref import assign_ref
+
+        state, inertia = self.initial, []
+        for payload in self.payloads:
+            pts = self.points(payload)
+            labels, best = assign_ref(pts, state.centroids)
+            inertia.append(best.mean())
+            state = self.kmeans.update(state, pts, labels)
+        return state, inertia
 
 
 def cuda_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
@@ -449,15 +531,19 @@ def phase_parity(torch) -> dict:
 
 
 def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES,
-                 phase: str = "stream") -> dict:
+                 phase: str = "stream", rate_hz: float | None = None) -> dict:
+    """The Mini-App stream at ``n_centroids``: every message appended at once,
+    or, with ``rate_hz``, open loop at the port's ``ConstantRate(rate_hz)``."""
     from repro_torch.core.metrics import MetricRegistry, new_run_id, percentile_summary
     from repro_torch.kernels.kmeans_distance import ops
     from repro_torch.models import kmeans
     from repro_torch.pilot.api import PilotComputeService, PilotDescription
     from repro_torch.streaming.broker import Broker
     from repro_torch.streaming.engine import ThreadedStreamingEngine, Workload
+    from repro_torch.streaming.producer import ConstantRate
 
     data = clustered(np.random.default_rng([SEED, 2, n_centroids]), n_messages)
+    program = ConstantRate(rate_hz) if rate_hz else None
     pcs = PilotComputeService()
     pilot = pcs.submit_pilot(PilotDescription(resource="torch://",
                                               attrs={"device": DEVICE}))
@@ -489,12 +575,18 @@ def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES
     reset_counts()
     engine.start()
     t0 = time.perf_counter()
+    due, lags = t0, []
     try:
         for i in range(n_messages):
+            if program is not None:       # open loop: wait for the program's next slot
+                time.sleep(max(0.0, due - time.perf_counter()))
+                due += 1.0 / program.rate(due - t0)
             ts = time.perf_counter()
             broker.append("points", data[i], ts=ts, run_id=run_id,
                           msg_id=f"{run_id}/{i}", size_bytes=data[i].nbytes)
             metrics.record(run_id, "broker", "append", ts, msg_id=f"{run_id}/{i}")
+            if program is not None:
+                lags.append(broker.lag("engine", "points"))
         engine.drain(n_messages, timeout=600)
     finally:
         engine.stop()
@@ -515,6 +607,9 @@ def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES
            "launches": launches,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "card": smi}
+    if program is not None:
+        out.update(rate_hz=rate_hz, lag_at_last_append=lags[-1], lag_max=max(lags),
+                   lag_mean=float(np.mean(lags)))
     emit(out)
     problems = []
     if engine.core.processed != n_messages:
@@ -592,6 +687,116 @@ def phase_profile(torch, smi: str) -> dict:
            else "not measured",
            "top": rows[:12], "card": smi}
     emit(out)
+    return out
+
+
+def _records_equal(a: dict, b: dict) -> bool:
+    """Field for field, ``==`` with NaN equal to NaN."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (isinstance(a[k], float) and a[k] != a[k] and b[k] != b[k])
+        for k in a)
+
+
+def phase_sim_cells(smi: str) -> dict:
+    """The port's ``run_experiment`` over the fig5 grid on the virtual clock
+    (the host only): each cell's record and DES events."""
+    from repro_torch.core.miniapp import StreamExperiment, run_experiment
+
+    t0 = time.perf_counter()
+    short = []
+    for cell in SIM_GRID:
+        res = run_experiment(StreamExperiment(**cell))
+        emit({"phase": "sim-cells", **res.record(), "des_events": res.des_events,
+              "wall_virtual_s": res.wall_virtual_s})
+        if res.processed != cell["n_messages"]:
+            short.append((cell["machine"], cell["centroids"], cell["partitions"]))
+    out = {"phase": "sim-cells", "cells": len(SIM_GRID), "host_s": time.perf_counter() - t0,
+           "card": smi}
+    emit(out)
+    if short:
+        raise AssertionError(f"sim-cells: messages missing in {short}")
+    return out
+
+
+def phase_sim_kmeans(torch, smi: str, machine: str, faults) -> dict:
+    """One simulated cell whose per-message K-Means update runs on the card
+    (``run_experiment(exp, fn=KMeansMessageUpdate(...))``), under
+    ``torch.profiler``; counts set to 0 just before and read just after.
+    Then the same cell without the update (its virtual record must be the
+    same) and the logged payloads replayed through the plain versions (the
+    model and each message's inertia, K2's two outputs, must be the same,
+    bit for bit)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.miniapp import StreamExperiment, run_experiment
+    from repro_torch.models import kmeans
+
+    exp = StreamExperiment(machine=machine, **SIM_KMEANS)
+    update = KMeansMessageUpdate(torch, exp.centroids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run_experiment(exp, fn=update, faults=faults)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    counts = {name: launches(name) for name in ("assign", "pairwise_sq_dists")}
+    peak = torch.cuda.max_memory_allocated()
+    rows = device_time_rows(prof)
+    device_ms = sum(r["device_ms"] for r in rows)
+    plain = run_experiment(exp, faults=faults)
+    same_record = (_records_equal(res.record(), plain.record())
+                   and (res.des_events, res.wall_virtual_s, res.faults)
+                   == (plain.des_events, plain.wall_virtual_s, plain.faults))
+    replay, replay_inertia = update.replay()
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(replay.centroids, update.state.centroids)
+                     and torch.equal(replay.counts, update.state.counts))
+    inertia_equal = bool(torch.equal(torch.stack(replay_inertia),
+                                     torch.stack(update.inertia)))
+    centroids, model_counts = kmeans.state_to_numpy(update.state)
+    inertia = torch.stack(update.inertia).cpu().numpy()
+    out = {"phase": "sim-kmeans", "machine": machine, "faults": faults,
+           **{k: v for k, v in res.record().items() if k != "machine"},
+           "des_events": res.des_events, "wall_virtual_s": res.wall_virtual_s,
+           "expected": exp.n_messages, "dup_delivered": res.dup_delivered,
+           "abandoned": res.abandoned, "retried": res.retried, "fault_ledger": res.faults,
+           "fn_calls": update.calls, "updates": len(update.payloads), "launches": counts,
+           "record_equals_plain_run": same_record, "replay_bit_equal": bit_equal,
+           "replay_inertia_bit_equal": inertia_equal,
+           "inertia_first": float(inertia[0]), "inertia_last": float(inertia[-1]),
+           "host_s": host_s, "device_ms": device_ms if rows else "not measured",
+           "device_busy_share": busy_share(device_ms, host_s * 1e3) if rows
+           else "not measured",
+           "top": rows[:8], "max_memory_allocated_bytes": peak, "card": smi}
+    emit(out)
+    problems = []
+    if res.processed != exp.n_messages or res.abandoned:
+        problems.append(f"processed {res.processed}/{exp.n_messages}, "
+                        f"abandoned {res.abandoned}")
+    if faults is not None and (res.dup_delivered != 1 or res.faults["skipped"]
+                               or res.faults["injected"] != len(faults["events"])):
+        problems.append(f"faults {res.faults}, dup_delivered {res.dup_delivered}")
+    if update.calls != exp.n_messages + res.dup_delivered \
+            or counts["assign"] != 2 * update.calls:
+        problems.append(f"assign launched {counts['assign']} times in {update.calls} "
+                        f"calls of fn")
+    if counts["pairwise_sq_dists"] != 0:
+        problems.append(f"pairwise_sq_dists launched {counts['pairwise_sq_dists']} times")
+    if not same_record:
+        problems.append("the card's update moved the virtual record")
+    if not bit_equal:
+        problems.append("the model differs from the plain replay")
+    if not inertia_equal:
+        problems.append("an inertia differs from the plain replay's")
+    if not inertia[-1] < inertia[0]:
+        problems.append("inertia did not fall")
+    if not (np.isfinite(centroids).all() and centroids.shape == (exp.centroids, DIM)
+            and model_counts.sum() == update.calls * exp.points):
+        problems.append("model not finite, of the wrong shape or miscounted")
+    if problems:
+        raise AssertionError(f"sim-kmeans {machine}: {problems}")
     return out
 
 
@@ -968,6 +1173,12 @@ def main() -> int:
                for k in MODEL_SIZES}
     run("profile", phase_profile, torch, device["nvidia_smi"])
     smi = device["nvidia_smi"]
+    if streams[MODEL_SIZES[0]] is not None:
+        run("stream-rate", phase_stream, torch, MODEL_SIZES[0], smi, N_MESSAGES,
+            "stream-rate", streams[MODEL_SIZES[0]]["msgs_per_s"] / 2)
+    run("sim-cells", phase_sim_cells, smi)
+    sim_kmeans = [run(f"sim-kmeans-{machine}{'-faults' if faults else ''}", phase_sim_kmeans,
+                      torch, smi, machine, faults) for machine, faults in SIM_KMEANS_CELLS]
 
     def serving_path(arch: str, kernel: str, suffix: str):
         """Weights, then serve-alone, serve and a profiled serve of ``arch``;
@@ -1010,6 +1221,7 @@ def main() -> int:
             "shape": {"n": N_POINTS, "k": MODEL_SIZES[0], "d": DIM, "dtype": "float32"},
             "launches_k8192": streams[MODEL_SIZES[1]]["launches"][name],
             "launches_kernel_phase": kernels["launches"][name],
+            "launches_sim_kmeans": [cell["launches"][name] for cell in sim_kmeans],
             "share_of_bound": row["share_of_bound"], "device_ms": row["device_ms"]})
     row = k3[FA_SERVING + ("bfloat16",)]
     bh, bkv, s, dh = FA_SERVING

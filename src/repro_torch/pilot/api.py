@@ -7,10 +7,15 @@ keyed by the URL scheme of ``PilotDescription.resource``; this package
 provides
 
     torch://            a device pilot: compute-units run on one torch device
+    serverless://       AWS Lambda + Kinesis mechanism simulation (virtual clock)
+    hpc://<machine>     Kafka + Dask on HPC mechanism simulation (virtual clock)
 
-The reference's cancellation, done-callbacks and ``Backend`` elasticity,
-fault and shared-resource hooks serve its simulated backends and come
-with them.
+``PilotComputeService(**kw)`` hands its keyword arguments (``seed``,
+``sim``) to every backend it creates.  Done-callbacks fire exactly once per
+unit, also when one is added from another thread while the unit finishes:
+each callback is taken off the unit's list by one atomic ``list`` operation,
+either by the finishing side or by the adding side, and whoever takes it
+runs it — no lock.
 """
 
 from __future__ import annotations
@@ -103,7 +108,7 @@ class ComputeUnit:
     """Handle for a submitted task."""
 
     __slots__ = ("desc", "uid", "pilot", "state", "result_value", "exception",
-                 "submit_ts", "start_ts", "end_ts", "_done")
+                 "submit_ts", "start_ts", "end_ts", "_done", "callbacks", "attrs")
 
     def __init__(self, desc: ComputeUnitDescription, uid: int, pilot: "Pilot") -> None:
         self.desc = desc
@@ -116,6 +121,8 @@ class ComputeUnit:
         self.start_ts = 0.0
         self.end_ts = 0.0
         self._done: threading.Event | None = None   # created on first access
+        self.callbacks: list = []   # fn(cu) invoked once, on any final state
+        self.attrs: dict = {}       # backend-set placement info (container/worker)
 
     @property
     def done_event(self) -> threading.Event:
@@ -126,11 +133,33 @@ class ComputeUnit:
                 self._done.set()
         return self._done
 
+    def add_done_callback(self, fn) -> None:
+        """Run ``fn(cu)`` once the unit is final (at once if it already is)."""
+        if not self.state.is_final:
+            self.callbacks.append(fn)
+            if not self.state.is_final:
+                return
+            # final meanwhile: the finisher may have taken fn already
+            try:
+                self.callbacks.remove(fn)
+            except ValueError:
+                return
+        fn(self)
+
+    def _fire_callbacks(self) -> None:
+        while True:
+            try:
+                fn = self.callbacks.pop(0)
+            except IndexError:
+                return
+            fn(self)
+
     def _finish(self, state: State, ts: float) -> None:
         self.state = state
         self.end_ts = ts
         if self._done is not None:
             self._done.set()
+        self._fire_callbacks()
 
     # -- lifecycle (driven by the backend) ----------------------------------
     def _set_running(self, ts: float) -> None:
@@ -145,6 +174,9 @@ class ComputeUnit:
         self.exception = exc
         self._finish(State.FAILED, ts)
 
+    def _set_canceled(self, ts: float) -> None:
+        self._finish(State.CANCELED, ts)
+
     # -- user API ------------------------------------------------------------
     def wait(self, timeout: float | None = None) -> "ComputeUnit":
         self.pilot.backend.drive_until(lambda: self.state.is_final, timeout)
@@ -154,6 +186,8 @@ class ComputeUnit:
         self.wait(timeout)
         if self.state == State.FAILED:
             raise self.exception
+        if self.state == State.CANCELED:
+            raise RuntimeError(f"compute unit {self.uid} canceled")
         return self.result_value
 
     @property
@@ -191,6 +225,10 @@ class Pilot:
         self.backend.drive_until(
             lambda: all(cu.state.is_final for cu in self.compute_units), timeout)
 
+    def cancel(self) -> None:
+        self.backend.cancel_pilot(self)
+        self.state = State.CANCELED
+
 
 class Backend:
     """Backend plugin interface."""
@@ -202,6 +240,43 @@ class Backend:
 
     def submit(self, pilot: Pilot, cu: ComputeUnit) -> None:
         raise NotImplementedError
+
+    def shared_resource(self, pilot: Pilot, name: str):
+        """A pilot's named shared resource (the HPC backend's ``"fs"``
+        Lustre ``SharedResource`` or ``"model_lock"``).  Backends without
+        shared infrastructure raise ``LookupError``: serverless containers
+        are isolated by construction."""
+        raise LookupError(
+            f"backend {self.scheme!r} exposes no shared resource {name!r}")
+
+    # -- elasticity ------------------------------------------------------------
+    def scale_to(self, pilot: Pilot, n: int) -> int:
+        """Grow or shrink the pilot's execution capacity to ``n`` units
+        mid-run; returns the granted target.  Static backends raise."""
+        raise NotImplementedError(f"backend {self.scheme!r} is not elastic")
+
+    def allocation(self, pilot: Pilot) -> int:
+        """Current target capacity (execution units) of the pilot."""
+        raise NotImplementedError(f"backend {self.scheme!r} is not elastic")
+
+    def effective_allocation(self, pilot: Pilot) -> int:
+        """Capacity granted right now, which can trail the target (HPC
+        grants wait out the batch queue).  Defaults to ``allocation``."""
+        return self.allocation(pilot)
+
+    # -- fault surface (driven by streaming.faults.FaultInjector) -------------
+    def inject_crash(self, pilot: Pilot, count: int = 1) -> int:
+        """Crash up to ``count`` execution units; in-flight work fails with
+        ``ConnectionError``.  Returns the units crashed (0 here)."""
+        return 0
+
+    def preempt(self, pilot: Pilot, count: int = 1) -> int:
+        """Revoke up to ``count`` units of granted capacity (spot
+        preemption).  Returns the units revoked (0 here)."""
+        return 0
+
+    def cancel_pilot(self, pilot: Pilot) -> None:
+        pass
 
     def drive_until(self, predicate: Callable[[], bool], timeout: float | None) -> None:
         """Advance execution until ``predicate`` holds."""

@@ -1,11 +1,14 @@
 # Importing this package registers the built-in backend plugins.
 #
-# The torch device backend is registered lazily, as the reference registers
-# its jax backend: the "torch" scheme resolves to a factory that imports
-# torchdevice on first use.
+# The simulated platforms (serverless://, hpc://) are plain numpy and
+# register eagerly, as in the reference.  The torch device backend is
+# registered lazily, as the reference registers its jax backend: the
+# "torch" scheme resolves to a factory that imports torchdevice on first use.
 from repro_torch.pilot.api import register_backend
+from repro_torch.pilot.backends.hpcsim import HpcSimBackend
+from repro_torch.pilot.backends.serverless import ServerlessSimBackend
 
-__all__ = ["TorchDeviceBackend"]
+__all__ = ["ServerlessSimBackend", "HpcSimBackend", "TorchDeviceBackend"]
 
 
 def _torchdevice_factory(**kwargs):

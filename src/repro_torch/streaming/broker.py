@@ -1,10 +1,11 @@
 """Partitioned message broker — the Kafka/Kinesis abstraction.
 
-Ports ``repro.streaming.broker`` (live ``repartition`` waits for a later
-slice).  A topic is a fixed number of partitions; a partition is an
-append-only offset-addressed log; consumer groups track per-partition
-committed offsets, and ``lag`` (appended but uncommitted messages) is the
-backpressure signal.
+Ports ``repro.streaming.broker``.  A topic is a set of partitions; a
+partition is an append-only offset-addressed log; consumer groups track
+per-partition committed offsets, and ``lag`` (appended but uncommitted
+messages) is the backpressure signal.  ``repartition`` reshards a topic live
+(Kinesis shard split/merge): growing adds partitions, shrinking seals the
+tail ones, whose backlogs consumers still drain.
 
 Consumers register append subscribers (``subscribe``): callbacks run
 synchronously after every append, outside the broker lock — the push path
@@ -58,6 +59,7 @@ class Broker:
         # maintained incrementally so lag() is O(1)
         self._appended_total: dict[str, int] = {}
         self._committed_total: dict[tuple[str, str], int] = {}
+        self._active: dict[str, int] = {}   # open (routable) partition count
 
     # -- topic admin -------------------------------------------------------
     def create_topic(self, name: str, partitions: int) -> None:
@@ -69,9 +71,30 @@ class Broker:
             self._logs[name] = [[] for _ in range(partitions)]
             self._rr[name] = 0
             self._appended_total[name] = 0
+            self._active[name] = partitions
 
     def num_partitions(self, topic: str) -> int:
+        """Partitions new messages route to (Kinesis: open shards)."""
+        return self._active[topic]
+
+    def total_partitions(self, topic: str) -> int:
+        """All partitions ever created, sealed ones included: consumers keep
+        draining sealed partitions' backlogs."""
         return len(self._logs[topic])
+
+    def repartition(self, topic: str, partitions: int) -> int:
+        """Live resharding: growing appends fresh partitions; shrinking
+        seals the tail ones (their logs stay addressable, offsets never
+        move) so new messages route only to the first ``partitions``.
+        Returns the new active count.  No data is dropped."""
+        with self._lock:
+            if partitions < 1:
+                raise ValueError("partitions must be >= 1")
+            logs = self._logs[topic]
+            while len(logs) < partitions:
+                logs.append([])
+            self._active[topic] = partitions
+            return partitions
 
     def topics(self) -> list[str]:
         return sorted(self._logs)
@@ -79,7 +102,7 @@ class Broker:
     # -- produce ------------------------------------------------------------
     def partition_for(self, topic: str, key: Any) -> int:
         with self._lock:
-            n = len(self._logs[topic])
+            n = self._active[topic]
             if key is None:
                 p = self._rr[topic] % n
                 self._rr[topic] += 1
@@ -127,7 +150,8 @@ class Broker:
             return len(self._logs[topic][partition])
 
     def end_offsets(self, topic: str) -> list[int]:
-        """End offsets of every partition under one lock acquisition."""
+        """End offsets of every partition (sealed ones included) under one
+        lock acquisition."""
         with self._lock:
             return [len(log) for log in self._logs[topic]]
 

@@ -46,9 +46,15 @@ def test_importing_the_slice_loads_no_jax():
         "import repro_torch.launch.serve, repro_torch.models.model\n"
         "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan.ops\n"
         "import repro_torch.kernels.ssd_scan.ref, repro_torch.configs.mamba2_130m\n"
+        "import repro_torch.sim.des, repro_torch.pilot.backends.serverless\n"
+        "import repro_torch.pilot.backends.hpcsim, repro_torch.streaming.producer\n"
+        "import repro_torch.streaming.faults, repro_torch.core.miniapp\n"
         "from repro_torch.pilot.api import PilotComputeService, PilotDescription\n"
-        "PilotComputeService().submit_pilot(\n"
-        "    PilotDescription(resource='torch://', attrs={'device': 'cpu'}))\n"
+        "pcs = PilotComputeService(seed=0)\n"
+        "for url in ('torch://', 'serverless://aws-sim', 'hpc://wrangler-sim'):\n"
+        "    pcs.submit_pilot(PilotDescription(resource=url, attrs={'device': 'cpu'}))\n"
+        "from repro_torch.core.miniapp import StreamExperiment, run_experiment\n"
+        "assert run_experiment(StreamExperiment(n_messages=8)).processed == 8\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import miniapp
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.kmeans_distance import ops
@@ -16,6 +17,7 @@ from repro_torch.kernels.kmeans_distance.ref import assign_ref, pairwise_sq_dist
 from repro_torch.models import kmeans
 
 from _kmeans_ties import planted_ties
+from _sim_kmeans import KMeansMessageUpdate
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}    # tests/test_kernels.py's
@@ -148,6 +150,30 @@ def test_minibatch_step_runs_on_the_card(device):
     assert ops.LAUNCHES["pairwise_sq_dists"] == before["pairwise_sq_dists"]
     assert ops.LAUNCHES["assign"] == before["assign"] + 2
     assert float(state.counts.sum()) == 1000 and torch.isfinite(loss)
+
+
+def test_simulated_cell_carries_the_card_update(device):
+    """A serverless cell on the virtual clock whose per-message update runs
+    on the card: K2 twice a message, K1 never, the virtual record of the
+    same cell without the update, and the model of a replay through the
+    plain versions, inertias included, bit for bit."""
+    exp = miniapp.StreamExperiment(machine="serverless", partitions=2, points=512,
+                                   centroids=64, n_messages=24, seed=3)
+    update = KMeansMessageUpdate(64, device=device)
+    before = dict(ops.LAUNCHES)
+    carried = miniapp.run_experiment(exp, fn=update)
+    torch.cuda.synchronize()
+    assert update.calls == 24
+    assert ops.LAUNCHES["assign"] - before["assign"] == 2 * update.calls
+    assert ops.LAUNCHES["pairwise_sq_dists"] == before["pairwise_sq_dists"]
+    plain = miniapp.run_experiment(exp)
+    assert carried.record() == plain.record()
+    assert (carried.des_events, carried.wall_virtual_s) == (plain.des_events,
+                                                            plain.wall_virtual_s)
+    replay, replay_inertia = update.replay()
+    assert torch.equal(replay.centroids, update.state.centroids)
+    assert torch.equal(replay.counts, update.state.counts)
+    assert torch.equal(torch.stack(replay_inertia), torch.stack(update.inertia))
 
 
 def test_update_refuses_tf32(device, monkeypatch):
