@@ -39,6 +39,21 @@ Phases, each printing JSON lines on standard output:
   record equal to the same cell run without the update, the inertia falling,
   and the final model and every message's inertia bit-equal to a replay of
   the logged payloads through the plain versions;
+* ``characterize`` — ``repro_torch.launch.characterize``'s flow (the
+  serverless/wrangler sweep and the wrangler policy ablation on the virtual
+  clock, through the process pool) with every USL fit on the card: pooled
+  records equal to serial ones, each fit, bootstrap CI and Fig-7 fit within
+  ``USL_TOL`` of the port's numpy backend, each machine's recommended
+  partitions equal; host seconds of the sweeps and the pool's start-up, fit
+  ms on the card against numpy ms on the host;
+* ``usl-batch`` — 64 scenarios x 7 levels fitted with 1,024 bootstrap
+  resamples (65,536 rows in one batch) on the card and with numpy, the
+  card's busy share under ``torch.profiler``, each quantity's worst
+  deviation as a share of its limit;
+* ``adapt`` — eight closed-loop cells on the virtual clock (serverless and
+  wrangler x ``usl``/``usl_online``/``reactive``/``static``), each twice
+  and equal, drained with nothing lost, ``usl`` no worse than ``reactive``,
+  the counts the reference's; then one wall-clock cell on ``local://``;
 * ``kernel-K3`` — kernel K3 (``flash_attention``: bf16 on the tensor cores,
   f32 on the CUDA cores) held against its plain version ``mha_ref`` at the
   serving shape of Qwen2-0.5B (bf16 and f32) and a ragged one, with
@@ -103,6 +118,24 @@ SIM_FAULTS = dict(events=[dict(t=30.0, kind="crash"), dict(t=60.0, kind="preempt
                           dict(t=90.0, kind="stall", target=1, duration_s=20.0),
                           dict(t=120.0, kind="duplicate", target=2)])
 SIM_KMEANS_CELLS = [("serverless", None), ("wrangler", None), ("serverless", SIM_FAULTS)]
+# StreamInsight: the card's USL fits against the port's numpy fits (T(N)
+# relative, sigma and kappa absolute, gamma and a peak_N CI bound relative)
+USL_TOL = {"t_rtol": 1e-6, "sigma": 1e-6, "kappa": 1e-7, "gamma_rtol": 1e-6,
+           "peak_rtol": 1e-6}
+USL_LEVELS = np.array([1, 2, 4, 8, 16, 32, 64], dtype=np.float64)   # tests/test_usl.py's
+USL_SCENARIOS, USL_BOOTSTRAP, REPORT_BOOTSTRAP = 64, 1_024, 1_000
+ADAPT_POLICIES = ("usl", "usl_online", "reactive", "static")
+ADAPT_CELL = dict(horizon_s=120.0, seed=0, points=N_POINTS, centroids=MODEL_SIZES[0])
+# (violating ticks, ticks) of these cells in the reference package
+ADAPT_REFERENCE = {("serverless", "usl"): (6, 60), ("serverless", "reactive"): (43, 70),
+                   ("wrangler", "usl"): (349, 381), ("wrangler", "reactive"): (456, 490)}
+# tests/test_adaptation.py's wall-clock cell (THREADED_KNOBS, its step trace)
+THREADED_CELL = dict(machine="serverless", engine="threaded", scaling_policy="usl",
+                     rate=dict(kind="step", base_hz=5.0, high_hz=40.0, t_step=4.0),
+                     horizon_s=10.0, control_interval_s=0.5, slo_lag=24,
+                     initial_partitions=1, max_partitions=6, static_partitions=6,
+                     catchup_horizon_s=2.0, stabilization_s=3.0, seed=0,
+                     usl_sigma=0.02, usl_kappa=1e-4, usl_gamma=20.0)
 N_CLUSTERS = 16
 SIM_CENTERS = 3 * np.random.default_rng([SEED, DIM]).standard_normal((N_CLUSTERS, DIM))
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, f32 outside the tensor cores
@@ -651,6 +684,18 @@ def device_time_rows(prof) -> list[dict]:
     return rows
 
 
+def host_time_rows(prof, top: int = 10) -> list[dict]:
+    """Host self time by op from a ``torch.profiler`` run, largest first:
+    where the host's issue time goes when the device waits for it."""
+    from torch.autograd import DeviceType
+
+    rows = [{"name": ev.key[:96], "calls": ev.count, "host_ms": ev.self_cpu_time_total / 1e3}
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total > 0]
+    rows.sort(key=lambda r: -r["host_ms"])
+    return rows[:top]
+
+
 def kernel_device_ms(rows: list[dict], kernel: str) -> float:
     """Summed device time of the rows that are kernels of the wrapper
     ``kernel`` (``flash_attention`` has ``flash_attention_kernel`` for f32 and
@@ -695,6 +740,10 @@ def _records_equal(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(
         a[k] == b[k] or (isinstance(a[k], float) and a[k] != a[k] and b[k] != b[k])
         for k in a)
+
+
+def _records_equal_list(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(_records_equal(x, y) for x, y in zip(a, b))
 
 
 def phase_sim_cells(smi: str) -> dict:
@@ -797,6 +846,235 @@ def phase_sim_kmeans(torch, smi: str, machine: str, faults) -> dict:
         problems.append("model not finite, of the wrong shape or miscounted")
     if problems:
         raise AssertionError(f"sim-kmeans {machine}: {problems}")
+    return out
+
+
+def usl_worst_shares(got, want, levels) -> dict:
+    """Each fitted quantity's worst deviation of ``got`` (the card's fits)
+    from ``want`` (numpy's), as a share of its limit in ``USL_TOL``."""
+    share = dict.fromkeys(("t", "sigma", "kappa", "gamma", "sigma_ci", "kappa_ci",
+                           "peak_n_ci"), 0.0)
+
+    def worst(key, dev):
+        share[key] = max(share[key], float(dev))
+
+    for g, w in zip(got, want, strict=True):
+        pw = w.predict(levels)
+        worst("t", np.max(np.abs(g.predict(levels) - pw) / np.abs(pw)) / USL_TOL["t_rtol"])
+        worst("sigma", abs(g.sigma - w.sigma) / USL_TOL["sigma"])
+        worst("kappa", abs(g.kappa - w.kappa) / USL_TOL["kappa"])
+        worst("gamma", abs(g.gamma - w.gamma) / abs(w.gamma) / USL_TOL["gamma_rtol"])
+        if w.n_bootstrap:
+            for a, b in zip(g.sigma_ci, w.sigma_ci):
+                worst("sigma_ci", abs(a - b) / USL_TOL["sigma"])
+            for a, b in zip(g.kappa_ci, w.kappa_ci):
+                worst("kappa_ci", abs(a - b) / USL_TOL["kappa"])
+            for a, b in zip(g.peak_n_ci, w.peak_n_ci):
+                worst("peak_n_ci", 0.0 if a == b else abs(a - b) / abs(b) / USL_TOL["peak_rtol"])
+    return share
+
+
+def _timed(fn, *args, **kwargs):
+    """(fn's result, its host seconds)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, time.perf_counter() - t0
+
+
+def phase_characterize(torch, smi: str) -> dict:
+    """``repro_torch.launch.characterize``'s flow with its fits on the card:
+    both designs swept serially and through the process pool
+    (``parallel="force"``: cold, then warm), whose records must be equal bit
+    for bit; then every ``fit_models`` / ``evaluate`` / bootstrap fit on the
+    card held against the port's numpy backend (``USL_TOL``), and each
+    machine's ``Autoscaler.usable_peak_n()`` equal between the two."""
+    import contextlib
+    import io
+
+    from repro_torch.core.autoscale import Autoscaler
+    from repro_torch.core.streaminsight import StreamInsight
+    from repro_torch.core.usl import fit_usl_batch
+    from repro_torch.launch import characterize as C
+
+    designs = {"sweep": C.sweep_design(), "ablation": C.ablation_design()}
+    serial, serial_s = {}, {}
+    for name, design in designs.items():
+        serial[name] = StreamInsight()
+        _, serial_s[name] = _timed(serial[name].run, design, parallel=False)
+    pooled_s = {}
+    for name in ("sweep", "ablation", "sweep-warm"):
+        si = StreamInsight()
+        _, pooled_s[name] = _timed(si.run, designs[name.split("-")[0]], parallel="force")
+        if not _records_equal_list(si.records(), serial[name.split("-")[0]].records()):
+            raise AssertionError(f"characterize: pooled {name} records differ from serial")
+    # the launch flow itself, fits on the card, its report kept as text
+    warm_n, warm_t = np.broadcast_to(USL_LEVELS, (2, 7)), np.ones((2, 7))
+    fit_usl_batch(warm_n, warm_t, backend="torch", device=DEVICE)   # solver setup
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        (si, si2), flow_s = _timed(C.characterize, device=DEVICE, parallel="force",
+                                   verbose=False)
+    card = dict(backend="torch", device=DEVICE)
+    rows, shares, problems = [], {}, []
+
+    def hold(label, got, want, levels):
+        sh = usl_worst_shares(got, want, levels)
+        shares[label] = sh
+        if max(sh.values()) > 1.0:
+            problems.append(f"{label}: {sh}")
+
+    levels = np.asarray(C.PARTITIONS, dtype=np.float64)
+    for name, ins, serial_ins in (("sweep", si, serial["sweep"]),
+                                  ("ablation", si2, serial["ablation"])):
+        if not _records_equal_list(ins.records(), serial_ins.records()):
+            problems.append(f"{name}: the flow's pooled records differ from serial")
+        models_np, np_s = _timed(ins.fit_models)
+        torch.cuda.synchronize()
+        models_cu, cu_s = _timed(ins.fit_models, **card)
+        hold(f"{name}/fit_models", [m.fit for m in models_cu], [m.fit for m in models_np],
+             levels)
+        boot_np, boot_np_s = _timed(ins.fit_models, bootstrap=REPORT_BOOTSTRAP)
+        boot_cu, boot_cu_s = _timed(ins.fit_models, bootstrap=REPORT_BOOTSTRAP, **card)
+        hold(f"{name}/bootstrap", [m.fit for m in boot_cu], [m.fit for m in boot_np], levels)
+        ev_np, ev_np_s = _timed(ins.evaluate, C.EVAL_SIZES)
+        ev_cu, ev_cu_s = _timed(ins.evaluate, C.EVAL_SIZES, **card)
+        for agg_np, agg_cu in zip(ev_np, ev_cu, strict=True):
+            for key, row in agg_np["scenarios"].items():
+                other = agg_cu["scenarios"].get(key)
+                if other is None or abs(other["sigma"] - row["sigma"]) > USL_TOL["sigma"] \
+                        or abs(other["kappa"] - row["kappa"]) > USL_TOL["kappa"]:
+                    problems.append(f"{name}/evaluate({agg_np['n_train_configs']}) {key}")
+        peaks = [(m.key[0], m.key[4], Autoscaler(m.fit).usable_peak_n(),
+                  Autoscaler(c.fit).usable_peak_n()) for m, c in zip(models_np, models_cu)]
+        if any(p_np != p_cu for *_k, p_np, p_cu in peaks):
+            problems.append(f"{name}: usable_peak_n differs {peaks}")
+        rows.append({
+            "design": name, "scenarios": len(models_np),
+            "fit_ms": {"card": cu_s * 1e3, "numpy": np_s * 1e3},
+            "bootstrap_fit_ms": {"card": boot_cu_s * 1e3, "numpy": boot_np_s * 1e3,
+                                 "rows": REPORT_BOOTSTRAP * len(models_np)},
+            "evaluate_ms": {"card": ev_cu_s * 1e3, "numpy": ev_np_s * 1e3},
+            "mean_rel_rmse": {str(a["n_train_configs"]): [a["mean_rel_rmse"],
+                                                          b["mean_rel_rmse"]]
+                              for a, b in zip(ev_cu, ev_np)},
+            "usable_peak_n": [{"machine": m, "policy": p, "numpy": a, "card": b}
+                              for m, p, a, b in peaks],
+            "report_card": [str(m) for m in boot_cu]})
+    report_lines = si.report(bootstrap=REPORT_BOOTSTRAP, **card).splitlines()
+    out = {"phase": "characterize", "serial_s": serial_s, "pooled_s": pooled_s,
+           "pool_startup_s": pooled_s["sweep"] - pooled_s["sweep-warm"],
+           "flow_s": flow_s, "flow_output": text.getvalue().splitlines(),
+           "report_bootstrap": report_lines, "fits": rows, "worst_to_limit": shares,
+           "card": smi}
+    emit(out)
+    if problems or len(report_lines) != 1 + len(rows[0]["report_card"]):
+        raise AssertionError(f"characterize: {problems}")
+    return out
+
+
+def usl_synth(seed: int, s: int):
+    """``tests/test_usl.py::_synth_batch``'s draws: random (sigma, kappa,
+    gamma) per scenario, T(N) at ``USL_LEVELS`` with 5% lognormal noise."""
+    from repro_torch.core.usl import usl_throughput
+
+    rng = np.random.default_rng(seed)
+    sigma, kappa = rng.uniform(0.0, 0.7, s), rng.uniform(0.0, 0.02, s)
+    gamma = rng.uniform(0.2, 30.0, s)
+    t = usl_throughput(USL_LEVELS[None, :], sigma[:, None], kappa[:, None], gamma[:, None])
+    return (np.broadcast_to(USL_LEVELS, (s, USL_LEVELS.size)),
+            t * rng.lognormal(0.0, 0.05, t.shape))
+
+
+def phase_usl_batch(torch, smi: str) -> dict:
+    """A fig6/fig7-sized bootstrap through one batch: 64 scenarios at 7
+    levels with ``bootstrap=1024`` (65,536 resampled rows, plus the 64-row
+    fit), on the card and with numpy on the host; the card's run once more
+    under ``torch.profiler`` for its busy share; each quantity's worst
+    deviation as a share of its limit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.usl import fit_usl_batch
+
+    n, t = usl_synth(SEED, USL_SCENARIOS)
+    kw = dict(bootstrap=USL_BOOTSTRAP, bootstrap_seed=SEED)
+    fit_usl_batch(n[:2], t[:2], backend="torch", device=DEVICE)       # solver setup
+    want, numpy_s = _timed(fit_usl_batch, n, t, **kw)
+    torch.cuda.synchronize()
+    got, card_s = _timed(fit_usl_batch, n, t, backend="torch", device=DEVICE, **kw)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_s = _timed(fit_usl_batch, n, t, backend="torch", device=DEVICE, **kw)
+    rows = device_time_rows(prof)
+    device_ms = sum(r["device_ms"] for r in rows)
+    shares = usl_worst_shares(got, want, USL_LEVELS)
+    out = {"phase": "usl-batch", "scenarios": USL_SCENARIOS, "levels": USL_LEVELS.tolist(),
+           "bootstrap": USL_BOOTSTRAP, "rows": USL_SCENARIOS * USL_BOOTSTRAP,
+           "card_s": card_s, "numpy_s": numpy_s, "profiled_s": prof_s,
+           "device_ms": device_ms if rows else "not measured",
+           "device_busy_share": busy_share(device_ms, prof_s * 1e3) if rows
+           else "not measured",
+           "top": rows[:8], "host_top": host_time_rows(prof), "worst_to_limit": shares,
+           "card": smi}
+    emit(out)
+    if max(shares.values()) > 1.0:
+        raise AssertionError(f"usl-batch: the card's fits exceed the tolerance {shares}")
+    return out
+
+
+def phase_adapt(smi: str) -> dict:
+    """Closed-loop adaptation: serverless and wrangler x the four scaling
+    policies on the virtual clock (the default step trace, 2 -> 12 Hz at
+    40 s; 120 s, seed 0, 16,000 points, 1,024 centroids), the predictive
+    cells parameterized by the sweep's numpy fits through ``usl_params``;
+    each cell run twice, records and traces equal.  Every cell must drain
+    with nothing lost, ``usl`` must violate no more ticks than ``reactive``
+    on each machine, and the counts must be the reference's.  Then the
+    reference test's wall-clock cell on ``local://``."""
+    from repro_torch.core.miniapp import AdaptationExperiment, run_adaptation
+    from repro_torch.core.streaminsight import StreamInsight
+    from repro_torch.launch import characterize as C
+
+    si = StreamInsight()
+    si.run(C.sweep_design(), parallel=False)
+    usl = si.usl_params(points=N_POINTS, centroids=MODEL_SIZES[0])
+    cells, problems = {}, []
+    for machine in ("serverless", "wrangler"):
+        for policy in ADAPT_POLICIES:
+            kw = dict(ADAPT_CELL, machine=machine, scaling_policy=policy)
+            if policy.startswith("usl"):
+                kw.update(zip(("usl_sigma", "usl_kappa", "usl_gamma"), usl[machine]))
+            res, host_s = _timed(run_adaptation, AdaptationExperiment(**kw))
+            again = run_adaptation(AdaptationExperiment(**kw))
+            repeat = (_records_equal(res.record(), again.record())
+                      and (res.alloc_trace, res.lag_trace)
+                      == (again.alloc_trace, again.lag_trace))
+            cells[(machine, policy)] = res
+            emit({"phase": "adapt", **res.record(), "host_s": host_s,
+                  "des_events": res.des_events, "repeat_equal": repeat})
+            if not (repeat and res.drained and res.lost == 0):
+                problems.append(f"{machine}/{policy}: repeat {repeat}, drained "
+                                f"{res.drained}, lost {res.lost}")
+            want = ADAPT_REFERENCE.get((machine, policy))
+            if want is not None and (res.slo_violations, res.ticks) != want:
+                problems.append(f"{machine}/{policy}: {res.slo_violations}/{res.ticks} "
+                                f"ticks violating, the reference's {want}")
+        if cells[(machine, "usl")].slo_violations > cells[(machine, "reactive")].slo_violations:
+            problems.append(f"{machine}: usl violates more ticks than reactive")
+    exp = AdaptationExperiment(**THREADED_CELL)
+    res, host_s = _timed(run_adaptation, exp)
+    ts = [t for t, _v in res.alloc_trace]
+    threaded_ok = (res.drained and res.processed == res.produced > 0 and res.ticks >= 10
+                   and res.scale_events >= 1 and res.final_allocation > 1
+                   and len(res.alloc_trace) == res.ticks
+                   and 0.0 < ts[0] < 2.0 and ts[-1] < exp.horizon_s + 5.0)
+    emit({"phase": "adapt-threaded", **res.record(), "host_s": host_s, "ok": threaded_ok})
+    if not threaded_ok:
+        problems.append("the threaded cell failed the reference test's checks")
+    out = {"phase": "adapt", "cells": len(cells), "usl_params": usl,
+           "violations": {f"{m}/{p}": [r.slo_violations, r.ticks]
+                          for (m, p), r in cells.items()}, "card": smi}
+    emit(out)
+    if problems:
+        raise AssertionError(f"adapt: {problems}")
     return out
 
 
@@ -1179,6 +1457,9 @@ def main() -> int:
     run("sim-cells", phase_sim_cells, smi)
     sim_kmeans = [run(f"sim-kmeans-{machine}{'-faults' if faults else ''}", phase_sim_kmeans,
                       torch, smi, machine, faults) for machine, faults in SIM_KMEANS_CELLS]
+    run("characterize", phase_characterize, torch, smi)
+    run("usl-batch", phase_usl_batch, torch, smi)
+    run("adapt", phase_adapt, smi)
 
     def serving_path(arch: str, kernel: str, suffix: str):
         """Weights, then serve-alone, serve and a profiled serve of ``arch``;

@@ -24,8 +24,8 @@ delivery with idempotent accounting (a redelivered message, same stable
 ``stall_partition`` freezes a partition's dispatch (fault injection).
 
 Both expose the control surface ``now()`` / ``call_later()`` /
-``repartition()``: the DES clock, or ``time.perf_counter`` plus a real-time
-ticker thread.  The threaded engine takes no lock of its own (the
+``repartition()`` / ``run_on_clock()``: the DES clock, or
+``time.perf_counter`` plus a real-time ticker thread.  The threaded engine takes no lock of its own (the
 reference's ticker condition and admin lock are designed away):
 
 * the ticker owns its heap; ``call_later`` hands it entries through a
@@ -303,6 +303,10 @@ class SimStreamingEngine:
     def call_later(self, delay_s: float, fn: Callable[[], None]) -> None:
         self.sim.schedule_fast(delay_s, fn)
 
+    def run_on_clock(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` now: the DES runs its callbacks on the caller's thread."""
+        fn()
+
     # -- live repartitioning (EILC: the control loop resizes N mid-run) -------
     def repartition(self, migration_s: float = 0.0) -> None:
         """Adopt the broker's current partition count mid-run.
@@ -473,6 +477,33 @@ class _WallTicker(threading.Thread):
     def stop(self) -> None:
         self._inbox.put(None)
 
+    def run_now(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` on the ticker thread, after the callbacks that are
+        due, and wait for it (re-raising what it raised); inline on the
+        ticker thread itself, or when the ticker is not running, since then
+        no callback can run beside it."""
+        if threading.current_thread() is self or not self.is_alive():
+            fn()
+            return
+        done = threading.Event()
+        raised: list[BaseException] = []
+
+        def call() -> None:
+            try:
+                fn()
+            except BaseException as exc:  # noqa: BLE001 — re-raised by the caller
+                raised.append(exc)
+            finally:
+                done.set()
+
+        self._inbox.put((time.perf_counter(), next(self._seq), call))
+        while not done.wait(0.05):
+            if not self.is_alive():   # stopped before it took the call
+                fn()
+                return
+        if raised:
+            raise raised[0]
+
     def run(self) -> None:
         heap: list[tuple[float, int, Callable[[], None]]] = []
         while True:
@@ -563,6 +594,11 @@ class ThreadedStreamingEngine:
 
     def call_later(self, delay_s: float, fn: Callable[[], None]) -> None:
         self._ticker.call_later(delay_s, fn)
+
+    def run_on_clock(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` on the ticker thread, between ``call_later``
+        callbacks, and return once it has run."""
+        self._ticker.run_now(fn)
 
     @property
     def ticker_error(self) -> BaseException | None:

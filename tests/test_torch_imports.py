@@ -59,8 +59,26 @@ def test_importing_the_slice_loads_no_jax():
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
+    _run_clean(code)
+
+
+def _run_clean(code: str) -> None:
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_what_the_pool_workers_import_loads_no_jax():
+    """A pooled sweep's workers re-import ``core.streaminsight`` (and the
+    launcher is the main module they re-import): neither may pull in
+    ``jax`` or the JAX package."""
+    _run_clean(
+        "import sys\n"
+        "import repro_torch.core.streaminsight, repro_torch.launch.characterize\n"
+        "import repro_torch.pilot.backends.local\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")

@@ -413,3 +413,52 @@ def test_mamba_forward_launches_the_kernel_once_per_layer(device):
     torch.cuda.synchronize()
     assert ssd_ops.LAUNCHES["ssd_scan"] == before + cfg.n_layers
     assert logits.shape == (2, 48, cfg.vocab_size) and torch.isfinite(logits).all()
+
+
+# -- the USL fit on the card (float64 batched Levenberg–Marquardt) -------------
+
+USL_NS = np.array([1, 2, 4, 8, 16, 32, 64], dtype=np.float64)
+
+
+def _usl_batch(seed, s):
+    """``tests/test_usl.py::_synth_batch``'s draws, through the port's
+    ``usl_throughput``."""
+    from repro_torch.core.usl import usl_throughput
+
+    rng = np.random.default_rng(seed)
+    sigma, kappa = rng.uniform(0.0, 0.7, s), rng.uniform(0.0, 0.02, s)
+    gamma = rng.uniform(0.2, 30.0, s)
+    t = usl_throughput(USL_NS[None, :], sigma[:, None], kappa[:, None], gamma[:, None])
+    return np.broadcast_to(USL_NS, (s, USL_NS.size)), t * rng.lognormal(0.0, 0.05, t.shape)
+
+
+@pytest.mark.parametrize("bootstrap", [0, 64])
+def test_usl_fit_on_the_card_matches_numpy(device, bootstrap):
+    from repro_torch.core.usl import fit_usl_batch
+
+    n, t = _usl_batch(0, 256)
+    got = fit_usl_batch(n, t, backend="torch", device=device, bootstrap=bootstrap)
+    want = fit_usl_batch(n, t, bootstrap=bootstrap)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.predict(USL_NS), w.predict(USL_NS), rtol=1e-6, atol=0)
+        assert abs(g.sigma - w.sigma) <= 1e-6 and abs(g.kappa - w.kappa) <= 1e-7
+        assert abs(g.gamma - w.gamma) <= 1e-6 * w.gamma
+        if bootstrap:
+            assert all(abs(a - b) <= 1e-6 for a, b in zip(g.sigma_ci, w.sigma_ci))
+            assert all(abs(a - b) <= 1e-7 for a, b in zip(g.kappa_ci, w.kappa_ci))
+            assert all(a == b or abs(a - b) <= 1e-6 * abs(b)
+                       for a, b in zip(g.peak_n_ci, w.peak_n_ci))
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal where no CUDA card is present")
+
+
+def test_usl_fit_on_cuda_without_a_card_raises(no_card):
+    from repro_torch.core.usl import fit_usl_batch
+
+    n, t = _usl_batch(1, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fit_usl_batch(n, t, backend="torch", device="cuda")
