@@ -54,6 +54,17 @@ Phases, each printing JSON lines on standard output:
   wrangler x ``usl``/``usl_online``/``reactive``/``static``), each twice
   and equal, drained with nothing lost, ``usl`` no worse than ``reactive``,
   the counts the reference's; then one wall-clock cell on ``local://``;
+* ``whatif`` — fig8's baseline tournament for serverless and wrangler (a
+  characterization sweep and numpy fit each, 4 rate traces x usl/reactive/
+  static, 120 s): every cell on the fast replay and equal to the scalar
+  DES, fig8's claims on the step and burst traces; one federated cell of
+  ``fed_design`` (the fast replay declines it) run twice, equal; the
+  lockstep seed scans of the serverless step cell through their entry
+  points on the card at 8 and 1,024 seeds (launches counted over this
+  run), within ``LOCKSTEP_RTOL`` of the float64 replay; then both
+  ``lockstep_scan`` kernels against their plain versions on the same
+  operands, with CUDA-event times beside the plain loops', the bound and a
+  sequential replay of the same seeds;
 * ``kernel-K3`` — kernel K3 (``flash_attention``: bf16 on the tensor cores,
   f32 on the CUDA cores) held against its plain version ``mha_ref`` at the
   serving shape of Qwen2-0.5B (bf16 and f32) and a ragged one, with
@@ -136,6 +147,34 @@ THREADED_CELL = dict(machine="serverless", engine="threaded", scaling_policy="us
                      initial_partitions=1, max_partitions=6, static_partitions=6,
                      catchup_horizon_s=2.0, stabilization_s=3.0, seed=0,
                      usl_sigma=0.02, usl_kappa=1e-4, usl_gamma=20.0)
+# fig8's baseline tournament (benchmarks/fig8_adaptation.py:226-246) at its
+# own sizes: per machine a characterization sweep (partitions 1-16, 8,000
+# points, 1,024 centroids, 60 messages; numpy fits), then 4 rate traces x
+# (usl, reactive, static), 120 s, max_partitions 16, slo_lag 32, seed 0
+WHATIF_SCENARIOS = {
+    "serverless": dict(policy=None, base_hz=2.0, high_hz=12.0, diurnal_mean_hz=6.0,
+                       burst_hz=10.0),
+    "wrangler": dict(policy="update_locked", base_hz=1.0, high_hz=6.0, diurnal_mean_hz=3.0,
+                     burst_hz=7.0)}
+WHATIF_PARTITIONS = [1, 2, 4, 8, 12, 16]
+WHATIF_BASE = dict(horizon_s=120.0, max_partitions=16, slo_lag=32)
+# fig8's fed_design "federated" scenario (serverless + wrangler members, the
+# serverless member out for 25 s at 45 s), seed 0
+FED_MEMBER_KNOBS = {"serverless": dict(price=1.0, grant_latency_s=0.0),
+                    "wrangler": dict(price=0.6, grant_latency_s=10.0)}
+FED_CELL = dict(machine="federated", policy="update_locked", scaling_policy="usl", seed=0,
+                rate=dict(kind="step", base_hz=2.0, high_hz=8.0, t_step=20.0), horizon_s=120.0,
+                control_interval_s=2.0, initial_partitions=2, max_partitions=8, points=2000,
+                centroids=256, max_retries=12, retry_backoff_s=0.1,
+                faults=dict(events=[dict(t=45.0, kind="backend_outage", target=0,
+                                         duration_s=25.0)]))
+# the lockstep seed scans of the serverless step cell: the grid scan of its
+# usl cell and the chain of the same trace at one static partition
+LOCKSTEP_SEEDS = (8, 1_024)
+LOCKSTEP_TOL = 1e-5     # kernel against plain: the chain's expf against torch.exp
+LOCKSTEP_SOURCE = "src/repro_torch/kernels/lockstep_scan/csrc/lockstep_scan.cu"
+LOCKSTEP_REPLACES = {"lockstep_scan": "src/repro/sim/batched.py:1559",
+                     "grid_lockstep_scan": "src/repro/sim/batched.py:1698"}
 N_CLUSTERS = 16
 SIM_CENTERS = 3 * np.random.default_rng([SEED, DIM]).standard_normal((N_CLUSTERS, DIM))
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, f32 outside the tensor cores
@@ -286,9 +325,10 @@ def cuda_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
 def _counters() -> tuple[dict, ...]:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.kmeans_distance import ops as kd_ops
+    from repro_torch.kernels.lockstep_scan import ops as ls_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    return kd_ops.LAUNCHES, fa_ops.LAUNCHES, ssd_ops.LAUNCHES
+    return kd_ops.LAUNCHES, fa_ops.LAUNCHES, ssd_ops.LAUNCHES, ls_ops.LAUNCHES
 
 
 def reset_counts() -> None:
@@ -412,7 +452,8 @@ def phase_build(torch) -> dict:
     missing = [n for n in ("pairwise_sq_dists_kernel", "pairwise_sq_dists_tile_kernel",
                            "assign_kernel", "assign_tile_kernel", "assign_combine_kernel",
                            "flash_attention_kernel", "flash_attention_bf16_kernel",
-                           *(f"ssd_scan_{p}_kernel" for p in ssd_ops.PHASES))
+                           *(f"ssd_scan_{p}_kernel" for p in ssd_ops.PHASES),
+                           "lockstep_chain_kernel", "grid_lockstep_kernel")
                if n not in names]
     if missing:
         raise RuntimeError(f"expected {missing} in the build, got {names}")
@@ -1078,6 +1119,247 @@ def phase_adapt(smi: str) -> dict:
     return out
 
 
+def rate_traces(s: dict) -> list[dict]:
+    """benchmarks/fig8_adaptation.py's four rate traces for a scenario."""
+    return [
+        dict(kind="step", base_hz=s["base_hz"], high_hz=s["high_hz"], t_step=40.0),
+        dict(kind="ramp", start_hz=s["base_hz"], end_hz=s["high_hz"], t0=30.0, t1=90.0),
+        dict(kind="diurnal", mean_hz=s["diurnal_mean_hz"], amplitude=0.7, period_s=60.0),
+        dict(kind="burst", base_hz=s["base_hz"], burst_hz=s["burst_hz"], burst_len_s=10.0,
+             mean_gap_s=25.0, seed=8),
+    ]
+
+
+def whatif_tournament(machine: str) -> dict:
+    """fig8's characterize -> fit -> baseline tournament for ``machine`` (the
+    host only): the tournament, its seconds, the fit, and the problems found
+    (fallbacks, undrained or lossy cells, a fast cell unequal to the scalar
+    DES, fig8's claims on the step and burst traces)."""
+    from repro_torch.core.miniapp import AdaptationPlan, run_plan
+    from repro_torch.core.streaminsight import ExperimentDesign, StreamInsight
+    from repro_torch.core.whatif import Tournament, WhatIfDesign
+
+    s = WHATIF_SCENARIOS[machine]
+    si = StreamInsight()
+    si.run(ExperimentDesign(machines=[machine], partitions=WHATIF_PARTITIONS, points=[8000],
+                            centroids=[1024], n_messages=60, policy=s["policy"]),
+           parallel=False)
+    usl = si.usl_params(policy=s["policy"])[machine]
+    design = WhatIfDesign(
+        base=dict(WHATIF_BASE, machine=machine, policy=s["policy"]),
+        scenarios=[dict(name=r["kind"], rate=r) for r in rate_traces(s)],
+        policies=[dict(name="usl", scaling_policy="usl",
+                       **dict(zip(("usl_sigma", "usl_kappa", "usl_gamma"), usl))),
+                  "reactive", "static"], seeds=[0])
+    t, seconds = _timed(Tournament(design, parallel=False).run)
+    problems = [f"{machine}: fell back {t.fallbacks}"] if t.fallbacks else []
+    if t.fast_cells != t.unique_cells:
+        problems.append(f"{machine}: {t.fast_cells} of {t.unique_cells} cells fast")
+    scalar_s = 0.0
+    for (trace, pol, _seed), summary in sorted(t.summaries.items()):
+        if not summary.drained or summary.lost:
+            problems.append(f"{machine}/{trace}/{pol}: drained {summary.drained}, "
+                            f"lost {summary.lost}")
+        scalar, secs = _timed(run_plan, AdaptationPlan(
+            experiment=summary.experiment.experiment, fast=False))
+        scalar_s += secs
+        if not _records_equal(scalar.record(), summary.record()):
+            problems.append(f"{machine}/{trace}/{pol}: fast replay != scalar DES")
+    for trace in ("step", "burst"):
+        usl_c, reactive, static = (t.summaries[(trace, p, 0)]
+                                   for p in ("usl", "reactive", "static"))
+        if not (usl_c.slo_violations < reactive.slo_violations
+                and usl_c.cost_integral <= reactive.cost_integral
+                and usl_c.cost_integral < static.cost_integral):
+            problems.append(f"{machine}/{trace}: fig8's claim failed: usl "
+                            f"{usl_c.slo_violations}/{usl_c.cost_integral}, reactive "
+                            f"{reactive.slo_violations}/{reactive.cost_integral}, static "
+                            f"{static.cost_integral}")
+    return {"tournament": t, "seconds": seconds, "scalar_s": scalar_s, "usl": usl,
+            "problems": problems}
+
+
+def whatif_federated(usl: dict) -> dict:
+    """One federated cell of fig8's ``fed_design`` through ``run_plan`` (the
+    fast replay declines it; the scalar DES runs it), and a second run,
+    which must be equal."""
+    from repro_torch.core.miniapp import AdaptationExperiment, AdaptationPlan, run_plan
+
+    members = [dict(name=m, machine=m, usl=tuple(usl[m]), **FED_MEMBER_KNOBS[m])
+               for m in ("serverless", "wrangler")]
+    exp = AdaptationExperiment(**FED_CELL, federation=dict(members=members),
+                               **dict(zip(("usl_sigma", "usl_kappa", "usl_gamma"),
+                                          usl["serverless"])))
+    summary, seconds = _timed(run_plan, AdaptationPlan(experiment=exp))
+    again = run_plan(AdaptationPlan(experiment=exp))
+    ledger = summary.member_ledger
+    problems = []
+    if summary.fast_path or "federated" not in (summary.fallback_reason or ""):
+        problems.append(f"federated: fast {summary.fast_path}, {summary.fallback_reason}")
+    if not (summary.drained and summary.lost == 0 and ledger[0]["opens"] >= 1
+            and ledger[0]["state"] == "closed"
+            and all(m["dirty_samples"] == 0 for m in ledger)):
+        problems.append(f"federated: drained {summary.drained}, lost {summary.lost}, "
+                        f"ledger {ledger}")
+    if not (_records_equal(summary.record(), again.record())
+            and summary.member_ledger == again.member_ledger):
+        problems.append("federated: a second run differs")
+    return {"summary": summary, "seconds": seconds, "problems": problems}
+
+
+def whatif_lockstep(exp, device: str) -> dict:
+    """The lockstep seed scans of ``exp`` (a serverless cell without faults)
+    through their entry points on ``device``, at each of LOCKSTEP_SEEDS:
+    the grid scan of ``exp`` and the chain of ``exp`` at one static
+    partition; host seconds, and each one's worst deviation from the
+    float64 replay (the grid's reference column, the chain's scalar latency
+    p50/p95 on the first 8 seeds) as a share of LOCKSTEP_RTOL."""
+    from repro_torch.core.metrics import percentile_summary
+    from repro_torch.core.miniapp import run_adaptation
+    from repro_torch.sim import batched
+
+    chain_exp = dataclasses.replace(exp, scaling_policy="static", static_partitions=1)
+    out, problems = {"grid": {}, "chain": {}}, []
+    for n_seeds in LOCKSTEP_SEEDS:
+        seeds = list(range(n_seeds))
+        (fins, ref_fin), secs = _timed(batched.grid_lockstep_completion_times, exp, seeds,
+                                       with_reference=True, device=device)
+        err = np.abs(fins[0].astype(np.float64) - ref_fin) / np.maximum(ref_fin, 1e-9)
+        share = float(err.max()) / batched.LOCKSTEP_RTOL
+        out["grid"][n_seeds] = {"host_s": secs, "steps": fins.shape[1],
+                                "share_of_lockstep_rtol": share}
+        if not (share <= 1.0 and np.isfinite(fins).all()):
+            problems.append(f"grid lockstep at {n_seeds} seeds: share {share}")
+        (fins, appends), secs = _timed(batched.lockstep_completion_times, chain_exp, seeds,
+                                       with_appends=True, device=device)
+        out["chain"][n_seeds] = {"host_s": secs, "steps": fins.shape[1]}
+        if not (np.all(np.diff(fins, axis=1) >= 0) and np.isfinite(fins).all()):
+            problems.append(f"lockstep chain at {n_seeds} seeds: not a FIFO chain")
+        if n_seeds == LOCKSTEP_SEEDS[0]:
+            worst = 0.0
+            for i, seed in enumerate(seeds):
+                res = run_adaptation(dataclasses.replace(chain_exp, seed=seed))
+                lat = percentile_summary(list(fins[i] - appends))
+                worst = max(worst, *(abs(lat[q] - res.latency_px[q])
+                                     / (batched.LOCKSTEP_RTOL * res.latency_px[q])
+                                     for q in ("p50", "p95")))
+            out["chain"][n_seeds]["share_of_lockstep_rtol"] = worst
+            if worst > 1.0:
+                problems.append(f"lockstep chain: latency share {worst}")
+    out["problems"] = problems
+    return out
+
+
+def lockstep_rows(torch, exp, smi: str) -> dict:
+    """Each lockstep kernel against its plain version on the card, on the
+    operands the entry points build for ``exp`` at each of LOCKSTEP_SEEDS:
+    worst deviation (and its share of LOCKSTEP_TOL), CUDA-event ms beside
+    the plain version's and the bound, and an estimate of the seconds a
+    sequential replay of the same seeds takes (the first 8 replayed and
+    timed, their mean scaled to the seed count)."""
+    from repro_torch.core.miniapp import AdaptationPlan, run_plan
+    from repro_torch.kernels.lockstep_scan import ops, ref
+    from repro_torch.sim import batched
+
+    dev = torch.device(DEVICE)
+    chain_exp = dataclasses.replace(exp, scaling_policy="static", static_partitions=1)
+    replay_s = [_timed(run_plan, AdaptationPlan(experiment=dataclasses.replace(exp, seed=s)))[1]
+                for s in range(LOCKSTEP_SEEDS[0])]
+    rows, failed = {}, []
+    for n_seeds in LOCKSTEP_SEEDS:
+        seeds = list(range(n_seeds))
+        g = batched.grid_lockstep_inputs(exp, seeds)
+        c = batched.lockstep_inputs(chain_exp, seeds)
+        grid_args = [torch.from_numpy(g[k]).to(dev) for k in ("floors", "parts", "conts", "dt")]
+        grid_args += [g["n_parts"], g["n_conts"]]
+        chain_args = [torch.from_numpy(np.ascontiguousarray(c[k], dtype=np.float32)).to(dev)
+                      for k in ("appends", "means", "z")] + [c["a"], c["b"]]
+        for name, fn, plain, args in (
+                ("grid_lockstep_scan", ops.grid_lockstep_scan, ref.grid_lockstep_scan_ref,
+                 grid_args),
+                ("lockstep_scan", ops.lockstep_scan, ref.lockstep_scan_ref, chain_args)):
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            share = float(((got - want).abs() / (LOCKSTEP_TOL * want.abs())).max())
+            S, n = got.shape
+            # each input read once, the finishes written once; the operations
+            # per step and seed (grid: 3 max, 1 add; chain: 2 mul, 2 add, exp,
+            # max) are far below the bytes' time
+            in_bytes = S * n * 4 + (12 if name == "grid_lockstep_scan" else 8) * n
+            t_bytes = (in_bytes + S * n * 4) / HBM_BYTES_PER_S
+            t_ops = S * n * (4 if name == "grid_lockstep_scan" else 6) / F32_OPS_PER_S
+            row = {"phase": "whatif-kernel", "kernel": name, "seeds": S, "steps": n,
+                   "ok": share <= 1.0 and bool(torch.isfinite(got).all()),
+                   "bit_equal": bool(torch.equal(got, want)),
+                   "max_abs_err": float((got - want).abs().max()),
+                   "worst_share_of_rtol": share, "tolerance": {"rtol": LOCKSTEP_TOL},
+                   "ms": cuda_ms(torch, lambda: fn(*args)),
+                   "plain_ms": cuda_ms(torch, lambda: plain(*args), iters=3, warmup=1),
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": None,
+                   # the first 8 seeds' replays measured, scaled to S seeds
+                   "sequential_replay_s_est": (sum(replay_s) / len(replay_s) * S
+                                               if name == "grid_lockstep_scan" else None),
+                   "card": smi}
+            if name == "grid_lockstep_scan":
+                row["n_parts"], row["n_conts"] = g["n_parts"], g["n_conts"]
+            emit(row)
+            rows[(name, S)] = row
+            if not row["ok"]:
+                failed.append((name, S))
+    if failed:
+        raise AssertionError(f"lockstep kernels disagree with their plain versions at {failed}")
+    return {"rows": rows, "sequential_replay_s_8": sum(replay_s)}
+
+
+def phase_whatif(torch, smi: str) -> dict:
+    """fig8's what-if path: for serverless and wrangler the baseline
+    tournament (every cell on the fast replay, each equal to the scalar
+    DES, fig8's claims held), one federated cell of ``fed_design``, and the
+    lockstep seed scans of the serverless step cell on the card at 8 and
+    1,024 seeds, through their entry points; launches counted over that
+    run.  Then each lockstep kernel against its plain version on the card."""
+    reset_counts()
+    t0 = time.perf_counter()
+    runs = {m: whatif_tournament(m) for m in WHATIF_SCENARIOS}
+    fed = whatif_federated({m: r["usl"] for m, r in runs.items()})
+    step_cell = runs["serverless"]["tournament"].summaries[("step", "usl", 0)]
+    exp = step_cell.experiment.experiment
+    lock = whatif_lockstep(exp, DEVICE)
+    host_s = time.perf_counter() - t0
+    counts = {k: launches(k) for k in LOCKSTEP_REPLACES}
+    problems = [p for r in runs.values() for p in r["problems"]]
+    problems += fed["problems"] + lock["problems"]
+    problems += [f"{k} was not launched in the whatif run" for k, v in counts.items() if v < 1]
+    for machine, r in runs.items():
+        t = r["tournament"]
+        emit({"phase": "whatif-tournament", "machine": machine, "usl": r["usl"],
+              "total_cells": t.total_cells, "unique_cells": t.unique_cells,
+              "fast_cells": t.fast_cells, "fallbacks": len(t.fallbacks),
+              "seconds": r["seconds"], "scalar_rerun_s": r["scalar_s"],
+              "rows": [{k: row[k] for k in ("scenario", "policy_name", "slo_violations",
+                                            "ticks", "cost_integral", "processed", "drained",
+                                            "lost")} for row in t.summary_rows()],
+              "wins": {f"{a}>{b}": w for (a, b), w in t.wins.items()}, "card": smi})
+    s = fed["summary"]
+    emit({"phase": "whatif-federated", **s.record(), "member_ledger": s.member_ledger,
+          "fallback_reason": s.fallback_reason, "seconds": fed["seconds"], "card": smi})
+    emit({"phase": "whatif-lockstep", "grid": lock["grid"], "chain": lock["chain"],
+          "launches": counts, "card": smi})
+    kernels = lockstep_rows(torch, exp, smi)
+    out = {"phase": "whatif", "host_s": host_s, "launches": counts,
+           "fast_cells": sum(r["tournament"].fast_cells for r in runs.values()),
+           "fallbacks": sum(len(r["tournament"].fallbacks) for r in runs.values()),
+           "tournament_s": {m: r["seconds"] for m, r in runs.items()},
+           "sequential_replay_s_8": kernels["sequential_replay_s_8"], "card": smi}
+    emit(out)
+    if problems:
+        raise AssertionError(f"whatif: {problems}")
+    out["rows"] = kernels["rows"]
+    return out
+
+
 def phase_kernel_k3(torch, smi: str) -> dict:
     """K3 against ``mha_ref`` on the same inputs, with times."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1460,6 +1742,7 @@ def main() -> int:
     run("characterize", phase_characterize, torch, smi)
     run("usl-batch", phase_usl_batch, torch, smi)
     run("adapt", phase_adapt, smi)
+    whatif = run("whatif", phase_whatif, torch, smi)
 
     def serving_path(arch: str, kernel: str, suffix: str):
         """Weights, then serve-alone, serve and a profiled serve of ``arch``;
@@ -1523,6 +1806,15 @@ def main() -> int:
         "library_ms": row["library_ms"], "chunked_ms": row["chunked_ms"],
         "f32_core_bound_ms": row["f32_core_bound_ms"],
         "shape": dict(zip(("batch", "s", "h", "p", "n"), SSD_SERVING), dtype="float32")})
+    for name, replaces in LOCKSTEP_REPLACES.items():
+        row = whatif["rows"][(name, LOCKSTEP_SEEDS[-1])]
+        summary.append({
+            "name": name, "route": "cuda", "source": LOCKSTEP_SOURCE, "replaces": replaces,
+            "launches": whatif["launches"][name], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "ms_8_seeds": whatif["rows"][(name, LOCKSTEP_SEEDS[0])]["ms"],
+            "shape": {"seeds": row["seeds"], "steps": row["steps"], "dtype": "float32"}})
     emit({"kernels": summary})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"],

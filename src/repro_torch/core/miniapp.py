@@ -33,9 +33,11 @@ on the wall clock (the threaded engine on the elastic ``local://``
 backend).  ``drift_t_s``/``drift_factor`` shift the per-message compute
 cost mid-run.
 
-Not ported yet: ``AdaptationPlan``/``run_plan`` and the adaptation
-summaries (they feed the fast replay, ``sim/batched.py``), and the
-``federated`` machine, whose ``federated://`` scheme has no backend here.
+``AdaptationPlan`` is a cell as data and ``run_plan`` runs it to a compact
+``AdaptationSummary``, through the fast replay (``sim.batched``) where the
+cell qualifies and through ``run_adaptation`` elsewhere; ``machine=
+"federated"`` runs its members behind ``federated://``.  Summaries equal the
+reference's bit for bit, however they were computed.
 
 Model-sharing consistency: ``full_fit_locked`` (the HPC default: the
 partial_fit inside the shared-model critical section, the paper's measured
@@ -68,6 +70,7 @@ __all__ = ["StreamExperiment", "ExperimentResult", "KMeansStreamWorkload",
            "run_experiment", "steady_state_throughput", "default_consistency",
            "POINT_BYTES", "KMEANS_DIM", "IMPL_OVERHEAD", "SERIALIZE_FLOPS_PER_BYTE",
            "AdaptationExperiment", "AdaptationResult", "run_adaptation",
+           "AdaptationPlan", "AdaptationSummary", "summarize_adaptation", "run_plan",
            "scaling_policy_spec", "adaptation_profile_factory"]
 
 
@@ -133,7 +136,8 @@ class _PlatformCell:
     URL and its consistency-policy default (subclasses declare ``policy``)."""
 
     machine: str = "serverless"         # serverless | wrangler | stampede2
-                                        # | federated (no backend here yet)
+                                        # | federated (members via the
+                                        # experiment's federation spec)
 
     @property
     def resource_url(self) -> str:
@@ -433,6 +437,132 @@ class AdaptationResult:
                     faults_injected=self.faults_injected,
                     preemptions=self.preemptions,
                     fault_windows=self.fault_windows, lost=self.lost)
+
+
+@dataclass
+class AdaptationPlan:
+    """One closed-loop run as *data*: the experiment plus execution flags.
+
+    A plan is picklable and JSON-able (it rides the ``run_cells`` process
+    pool and keys the ``ResultCache``), and ``run_plan`` is a pure function
+    of it — a run is a value, not a script.  ``fast=True`` lets the runner
+    take the vectorized serverless replay (``sim.batched``) when the cell
+    qualifies; the result is bit-identical either way, so ``fast`` is an
+    execution hint, not a semantic axis."""
+
+    experiment: AdaptationExperiment
+    fast: bool = True
+
+    def __post_init__(self) -> None:
+        if isinstance(self.experiment, dict):   # cache/JSON round-trip
+            self.experiment = AdaptationExperiment(**self.experiment)
+
+    def cost_estimate(self) -> float:
+        """Work estimate for the ``run_cells`` serial-vs-pool auto-switch
+        (a plan costs what its cell costs)."""
+        return self.experiment.cost_estimate()
+
+
+@dataclass
+class AdaptationSummary:
+    """Compact, trace-free report card of one adaptation cell.
+
+    Everything fig8 tables and what-if reductions consume — violations,
+    cost integral, fault ledger, refits, latency percentiles — and nothing
+    sized O(events): no alloc/lag traces, no tick-error ring, no DES event
+    counts.  This is the payload a fleet of pool workers ships back and
+    the ``ResultCache`` memoizes for what-if plans."""
+
+    experiment: AdaptationPlan
+    slo_violations: int
+    ticks: int
+    cost_integral: float
+    scale_events: int
+    produced: int
+    processed: int
+    throughput: float
+    latency_px: dict
+    final_allocation: int = 1
+    drained: bool = True
+    drain_s: float = 0.0
+    refits: int = 0
+    abandoned: int = 0
+    dup_delivered: int = 0
+    faults_injected: int = 0
+    preemptions: int = 0
+    fault_windows: int = 0
+    lost: int = 0
+    member_ledger: list = field(default_factory=list)
+    fast_path: bool = False            # vectorized replay taken?
+    fallback_reason: str | None = None  # why it was not, if ``fast`` asked
+
+    def record(self) -> dict:
+        """Flat row for tables; excludes the execution-telemetry fields
+        (``fast_path``/``fallback_reason``) so fast and scalar runs of the
+        same plan produce *identical* rows."""
+        e = self.experiment.experiment
+        return dict(machine=e.machine, scaling_policy=e.scaling_policy,
+                    engine=e.engine,
+                    rate_kind=e.rate.get("kind", "?"), horizon_s=e.horizon_s,
+                    seed=e.seed,
+                    slo_violations=self.slo_violations, ticks=self.ticks,
+                    violation_frac=self.slo_violations / max(self.ticks, 1),
+                    cost_integral=self.cost_integral,
+                    scale_events=self.scale_events, refits=self.refits,
+                    produced=self.produced, processed=self.processed,
+                    throughput=self.throughput,
+                    latency_px_p95=self.latency_px.get("p95", float("nan")),
+                    final_allocation=self.final_allocation,
+                    drained=self.drained, drain_s=self.drain_s,
+                    abandoned=self.abandoned, dup_delivered=self.dup_delivered,
+                    faults_injected=self.faults_injected,
+                    preemptions=self.preemptions,
+                    fault_windows=self.fault_windows, lost=self.lost)
+
+
+def summarize_adaptation(res: AdaptationResult, *,
+                         plan: AdaptationPlan | None = None,
+                         fast_path: bool = False,
+                         fallback_reason: str | None = None) -> AdaptationSummary:
+    """Compress a full ``AdaptationResult`` into an ``AdaptationSummary``
+    (drop the traces, keep the report card)."""
+    return AdaptationSummary(
+        experiment=plan if plan is not None
+        else AdaptationPlan(experiment=res.experiment),
+        slo_violations=res.slo_violations, ticks=res.ticks,
+        cost_integral=res.cost_integral, scale_events=res.scale_events,
+        produced=res.produced, processed=res.processed,
+        throughput=res.throughput, latency_px=dict(res.latency_px),
+        final_allocation=res.final_allocation, drained=res.drained,
+        drain_s=res.drain_s, refits=res.refits, abandoned=res.abandoned,
+        dup_delivered=res.dup_delivered, faults_injected=res.faults_injected,
+        preemptions=res.preemptions, fault_windows=res.fault_windows,
+        lost=res.lost, member_ledger=list(res.member_ledger),
+        fast_path=fast_path, fallback_reason=fallback_reason)
+
+
+def run_plan(plan: AdaptationPlan | AdaptationExperiment,
+             metrics: MetricRegistry | None = None) -> AdaptationSummary:
+    """Execute one what-if plan → summary.  Pure and picklable: same
+    signature contract as ``run_adaptation`` (so it slots into the
+    ``run_cells`` cell-type registry), but returns the compact summary.
+
+    With ``plan.fast`` set the qualifying serverless cells run on the
+    vectorized replay (``sim.batched``) — bit-identical to the scalar DES
+    by construction and tested — and every non-qualifying cell falls back
+    to ``run_adaptation`` with the reason recorded on the summary (and
+    logged by the fast path)."""
+    if isinstance(plan, AdaptationExperiment):
+        plan = AdaptationPlan(experiment=plan)
+    reason = None
+    if plan.fast:
+        from repro_torch.sim.batched import try_fast_adaptation
+        summary, reason = try_fast_adaptation(plan)
+        if summary is not None:
+            return summary
+    res = run_adaptation(plan.experiment, metrics)
+    return summarize_adaptation(res, plan=plan, fast_path=False,
+                                fallback_reason=reason)
 
 
 def scaling_policy_spec(exp: AdaptationExperiment) -> dict:

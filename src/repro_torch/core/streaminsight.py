@@ -63,11 +63,11 @@ model → adapt pipeline in two calls.  Adaptation cells ride the same
 characterization cells.
 
 Ports ``repro.core.streaminsight``; on the numpy backend its records, fits,
-evaluations and reports equal the reference's bit for bit.  What-if plan
-cells (``AdaptationPlan``) are not registered yet: they come with the fast
-replay.  The persistent pool takes no lock (the reference's pool-creation
-lock is designed away): the first thread that runs a pooled sweep owns the
-pool, and a pooled sweep from any other thread raises.
+evaluations and reports equal the reference's bit for bit, and so do the
+summaries of what-if plan cells (``AdaptationPlan``).  The persistent pool
+takes no lock (the reference's pool-creation lock is designed away): the
+first thread that runs a pooled sweep owns the pool, and a pooled sweep from
+any other thread raises.
 """
 
 from __future__ import annotations
@@ -88,10 +88,11 @@ from typing import Any
 import numpy as np
 
 from repro_torch.core.metrics import MetricRegistry
-from repro_torch.core.miniapp import (AdaptationExperiment, AdaptationResult,
+from repro_torch.core.miniapp import (AdaptationExperiment, AdaptationPlan,
+                                      AdaptationResult, AdaptationSummary,
                                       ExperimentResult, StreamExperiment,
                                       default_consistency, run_adaptation,
-                                      run_experiment)
+                                      run_experiment, run_plan)
 from repro_torch.core.usl import USLFit, fit_usl_batch, fit_usl_ragged, rmse
 
 __all__ = ["ExperimentDesign", "AdaptationDesign", "ScenarioModel",
@@ -238,15 +239,27 @@ _ADAPT_RESULT_FIELDS = ("run_id", "slo_violations", "ticks", "cost_integral",
                         "preemptions", "fault_windows", "lost",
                         "tick_error_log", "member_ledger")
 
+# summary cells: everything AdaptationSummary carries except the plan
+# itself (reconstructed from the cache doc's experiment payload)
+_PLAN_SUMMARY_FIELDS = ("slo_violations", "ticks", "cost_integral",
+                        "scale_events", "produced", "processed", "throughput",
+                        "latency_px", "final_allocation", "drained",
+                        "drain_s", "refits", "abandoned", "dup_delivered",
+                        "faults_injected", "preemptions", "fault_windows",
+                        "lost", "member_ledger", "fast_path",
+                        "fallback_reason")
+
 # cell-type registry: run_cells / ResultCache dispatch on the experiment
-# dataclass, so characterization and adaptation cells share the runner,
-# pool, and on-disk memo.
+# dataclass, so characterization, adaptation and what-if plan cells share
+# the runner, pool, and on-disk memo.
 # name -> (experiment cls, result cls, fields, fn)
 _CELL_TYPES = {
     "StreamExperiment": (StreamExperiment, ExperimentResult,
                          _RESULT_FIELDS, run_experiment),
     "AdaptationExperiment": (AdaptationExperiment, AdaptationResult,
                              _ADAPT_RESULT_FIELDS, run_adaptation),
+    "AdaptationPlan": (AdaptationPlan, AdaptationSummary,
+                       _PLAN_SUMMARY_FIELDS, run_plan),
 }
 
 
@@ -257,8 +270,15 @@ def _execute(exp, registry: MetricRegistry):
 
 def cache_key(exp) -> str:
     """The one key-derivation path for every cell type: cell type + all
-    experiment fields, stable-JSON-hashed under ``CACHE_SCHEMA_VERSION``."""
+    experiment fields, stable-JSON-hashed under ``CACHE_SCHEMA_VERSION``.
+
+    ``AdaptationPlan.fast`` is an execution hint (the fast replay is
+    bit-identical to the scalar DES), so it is left out: a plan's summary is
+    the same value however it was computed, and the what-if dedupe in
+    ``core.whatif`` keys on this too."""
     payload_dict = dataclasses.asdict(exp)
+    if type(exp).__name__ == "AdaptationPlan":
+        payload_dict.pop("fast", None)
     payload = json.dumps(payload_dict, sort_keys=True, default=repr)
     digest = hashlib.sha256(
         f"v{CACHE_SCHEMA_VERSION}:{type(exp).__name__}:{payload}".encode())
@@ -269,7 +289,8 @@ class ResultCache:
     """On-disk memo of experiment results keyed by the experiment dataclass
     (cell type + all fields, stable-JSON-hashed), so re-running a sweep only
     pays for cells whose parameters changed.  Holds characterization
-    (``ExperimentResult``) and adaptation (``AdaptationResult``) cells."""
+    (``ExperimentResult``), adaptation (``AdaptationResult``) and what-if
+    plan (``AdaptationSummary``) cells."""
 
     def __init__(self, root: str | Path) -> None:
         self.root = Path(root)

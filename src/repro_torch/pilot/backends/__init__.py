@@ -1,16 +1,18 @@
 # Importing this package registers the built-in backend plugins.
 #
-# The simulated platforms (serverless://, hpc://) and the wall-clock thread
-# pool (local://) register eagerly, as in the reference.  The torch device
-# backend is registered lazily, as the reference registers its jax backend:
-# the "torch" scheme resolves to a factory that imports torchdevice on first use.
+# The simulated platforms (serverless://, hpc://, federated://) and the
+# wall-clock thread pool (local://) register eagerly, as in the reference.
+# The torch device backend is registered lazily, as the reference registers
+# its jax backend: the "torch" scheme resolves to a factory that imports
+# torchdevice on first use.
 from repro_torch.pilot.api import register_backend
+from repro_torch.pilot.backends.federated import FederatedBackend
 from repro_torch.pilot.backends.hpcsim import HpcSimBackend
 from repro_torch.pilot.backends.local import LocalBackend
 from repro_torch.pilot.backends.serverless import ServerlessSimBackend
 
 __all__ = ["LocalBackend", "ServerlessSimBackend", "HpcSimBackend",
-           "TorchDeviceBackend"]
+           "FederatedBackend", "TorchDeviceBackend"]
 
 
 def _torchdevice_factory(**kwargs):

@@ -49,12 +49,19 @@ def test_importing_the_slice_loads_no_jax():
         "import repro_torch.sim.des, repro_torch.pilot.backends.serverless\n"
         "import repro_torch.pilot.backends.hpcsim, repro_torch.streaming.producer\n"
         "import repro_torch.streaming.faults, repro_torch.core.miniapp\n"
+        "import repro_torch.sim.batched, repro_torch.core.whatif\n"
+        "import repro_torch.pilot.backends.federated, repro_torch.kernels.lockstep_scan.ops\n"
         "from repro_torch.pilot.api import PilotComputeService, PilotDescription\n"
         "pcs = PilotComputeService(seed=0)\n"
         "for url in ('torch://', 'serverless://aws-sim', 'hpc://wrangler-sim'):\n"
         "    pcs.submit_pilot(PilotDescription(resource=url, attrs={'device': 'cpu'}))\n"
+        "pcs.submit_pilot(PilotDescription(resource='federated://mix', attrs={'federation':\n"
+        "    {'members': [{'machine': 'serverless'}, {'machine': 'wrangler'}]}}))\n"
         "from repro_torch.core.miniapp import StreamExperiment, run_experiment\n"
         "assert run_experiment(StreamExperiment(n_messages=8)).processed == 8\n"
+        "from repro_torch.core.miniapp import AdaptationExperiment, run_plan\n"
+        "exp = AdaptationExperiment(scaling_policy='reactive', horizon_s=20.0)\n"
+        "assert run_plan(exp).fast_path\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

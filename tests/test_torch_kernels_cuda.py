@@ -462,3 +462,88 @@ def test_usl_fit_on_cuda_without_a_card_raises(no_card):
     n, t = _usl_batch(1, 4)
     with pytest.raises(RuntimeError, match="cuda"):
         fit_usl_batch(n, t, backend="torch", device="cuda")
+
+
+# -- lockstep seed scans ------------------------------------------------------------
+
+LOCK_CELL = dict(machine="serverless", scaling_policy="static", static_partitions=1,
+                 horizon_s=60.0, rate=dict(kind="step", base_hz=2.0, high_hz=4.0, t_step=30.0))
+GRID_CELL = dict(machine="serverless", scaling_policy="usl", usl_sigma=0.0, usl_kappa=3.0e-4,
+                 usl_gamma=1.94, horizon_s=90.0, max_partitions=16, slo_lag=32,
+                 control_interval_s=2.0, stabilization_s=0.0, scale_down_hysteresis=0.08,
+                 headroom=0.0, catchup_horizon_s=8.0, refit_interval_s=5.0, max_step_up=2,
+                 drift_t_s=25.0, drift_factor=1.8, refit_half_life_s=25.0,
+                 rate=dict(kind="step", base_hz=2.0, high_hz=10.0, t_step=15.0, t_end=70.0))
+LOCKSTEP_TOL = 1e-5      # the chain's expf on the card against torch.exp
+
+
+def _grid_inputs(s, n, n_parts, n_conts, device, seed=0):
+    rng = np.random.default_rng(seed)
+    floors = np.cumsum(rng.exponential(0.1, n)).astype(np.float32)
+    parts = rng.integers(0, n_parts, n).astype(np.int32)
+    conts = rng.integers(0, n_conts, n).astype(np.int32)
+    dt = rng.uniform(0.05, 0.6, (s, n)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (floors, parts, conts, dt)]
+
+
+@pytest.mark.parametrize("s,n", [(8, 1251), (1024, 1251), (33, 7), (1, 1)])
+def test_lockstep_chain_kernel_matches_plain(device, s, n):
+    from repro_torch.kernels.lockstep_scan import ops as ls_ops
+    from repro_torch.kernels.lockstep_scan.ref import lockstep_scan_ref
+
+    rng = np.random.default_rng(s + n)
+    appends = torch.from_numpy(np.cumsum(rng.exponential(0.3, n)).astype(np.float32)).to(device)
+    means = torch.from_numpy(rng.uniform(0.1, 0.5, n).astype(np.float32)).to(device)
+    z = torch.from_numpy(rng.standard_normal((s, n)).astype(np.float32)).to(device)
+    before = ls_ops.LAUNCHES["lockstep_scan"]
+    got = ls_ops.lockstep_scan(appends, means, z, -0.0198, 0.1990)
+    torch.cuda.synchronize()
+    assert ls_ops.LAUNCHES["lockstep_scan"] == before + 1
+    want = lockstep_scan_ref(appends, means, z, -0.0198, 0.1990)
+    torch.testing.assert_close(got, want, rtol=LOCKSTEP_TOL, atol=0)
+
+
+@pytest.mark.parametrize("s,n,n_parts,n_conts", [(8, 1251, 11, 12), (1024, 1251, 16, 40),
+                                                 (40, 300, 4, 2000), (3, 5, 1, 1)])
+def test_grid_lockstep_kernel_is_bit_equal_to_plain(device, s, n, n_parts, n_conts):
+    from repro_torch.kernels.lockstep_scan import ops as ls_ops
+    from repro_torch.kernels.lockstep_scan.ref import grid_lockstep_scan_ref
+
+    floors, parts, conts, dt = _grid_inputs(s, n, n_parts, n_conts, device)
+    before = ls_ops.LAUNCHES["grid_lockstep_scan"]
+    got = ls_ops.grid_lockstep_scan(floors, parts, conts, dt, n_parts, n_conts)
+    torch.cuda.synchronize()
+    assert ls_ops.LAUNCHES["grid_lockstep_scan"] == before + 1
+    # max and a correctly rounded add: the same float32 values in any order
+    assert torch.equal(got, grid_lockstep_scan_ref(floors, parts, conts, dt, n_parts, n_conts))
+
+
+def test_grid_lockstep_kernel_marks_an_index_out_of_range(device):
+    from repro_torch.kernels.lockstep_scan import ops as ls_ops
+
+    floors, parts, conts, dt = _grid_inputs(4, 50, 3, 3, device)
+    parts[10] = 3
+    got = ls_ops.grid_lockstep_scan(floors, parts, conts, dt, 3, 3)
+    assert torch.isnan(got[:, 10]).all() and not torch.isnan(got[:, :10]).any()
+
+
+def test_lockstep_entry_points_run_the_kernels_on_the_card(device):
+    from repro_torch.core.miniapp import AdaptationExperiment
+    from repro_torch.kernels.lockstep_scan import ops as ls_ops
+    from repro_torch.sim import batched
+
+    before = dict(ls_ops.LAUNCHES)
+    seeds = list(range(16))
+    exp = AdaptationExperiment(seed=0, **LOCK_CELL)
+    got = batched.lockstep_completion_times(exp, seeds, device="cuda")
+    want = batched.lockstep_completion_times(exp, seeds, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=LOCKSTEP_TOL, atol=0)
+    grid = AdaptationExperiment(seed=0, **GRID_CELL)
+    fins, ref_fin = batched.grid_lockstep_completion_times(grid, seeds, with_reference=True,
+                                                           device="cuda")
+    assert np.array_equal(fins, batched.grid_lockstep_completion_times(grid, seeds,
+                                                                       device="cpu"))
+    err = np.abs(fins[0].astype(np.float64) - ref_fin) / np.maximum(ref_fin, 1e-9)
+    assert float(err.max()) <= batched.LOCKSTEP_RTOL
+    assert ls_ops.LAUNCHES == {"lockstep_scan": before["lockstep_scan"] + 1,
+                               "grid_lockstep_scan": before["grid_lockstep_scan"] + 1}
