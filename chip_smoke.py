@@ -67,8 +67,9 @@ Phases, each printing JSON lines on standard output:
   sequential replay of the same seeds;
 * ``kernel-K3`` — kernel K3 (``flash_attention``: bf16 on the tensor cores,
   f32 on the CUDA cores) held against its plain version ``mha_ref`` at the
-  serving shape of Qwen2-0.5B (bf16 and f32) and a ragged one, with
-  CUDA-event times beside the bound and SDPA;
+  prefill shapes of Qwen2-0.5B (Dh 64), Qwen2.5-14B and GLM-4-9B (Dh 128),
+  bf16 and f32, and a ragged one, with CUDA-event times beside the bound
+  and SDPA;
 * ``lm-parity`` — full-width Qwen2-0.5B in float32: prefill logits and
   greedy tokens of the model on the card (through K3) against the same
   model on the CPU (plain versions);
@@ -78,6 +79,19 @@ Phases, each printing JSON lines on standard output:
 * ``serve-alone`` — one such micro-batch generated in the main thread,
   without the engine, for comparison;
 * ``serve-profile`` — a shorter serve run under ``torch.profiler``;
+* ``arch-configs`` — GLM-4-9B, Qwen2.5-3B and InternVL2-1B at their
+  published widths, cut to 2 layers, bf16: one prefill of 4 x 1,024 tokens
+  (InternVL2's first 256 positions taking patch embeddings drawn from the
+  seed) and 8 greedy tokens; finite logits, tokens in the vocabulary, K3
+  once a layer;
+* ``lm-parity-14b`` and ``lm-parity-musicgen`` — ``lm-parity`` for
+  Qwen2.5-14B at full width, its first 4 of 48 layers (the host's float32
+  copy at full depth would need 59 GB), and for MusicGen-Medium at full
+  width and depth, a 300-token prompt whose first 256 positions take frame
+  embeddings drawn from the seed, with sinusoidal positions;
+* ``serve-alone-14b``, ``serve-14b`` and ``serve-profile-14b`` — the three
+  serving phases for Qwen2.5-14B at full width and depth in bf16 (29.5 GB
+  of weights), whose prefill runs K3 at Dh 128;
 * ``kernel-K4`` — kernel K4 (``ssd_scan``, three CUDA kernels a call) held
   against its plain version ``ssd_ref`` (and a float64 run of it) at the
   prefill shape of Mamba2-130M, a ragged length, with an initial state, and
@@ -186,14 +200,28 @@ REPLACES = {"pairwise_sq_dists": "src/repro/kernels/kmeans_distance/kernel.py:57
 KERNEL_SHAPES = [(N_POINTS, k, DIM, "float32") for k in MODEL_SIZES] + [
     (8_001, 1_000, 130, "float32"), (8_001, 1_000, 130, "bfloat16")]
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py's
-# LM paths at full width: Qwen2-0.5B (src/repro_torch/configs/qwen2_0_5b.py),
-# whose prefill runs K3, and Mamba2-130M (.../mamba2_130m.py), which runs K4
-DENSE_ARCH, SSM_ARCH = "qwen2-0.5b", "mamba2-130m"
+# LM paths at full width: Qwen2-0.5B (src/repro_torch/configs/qwen2_0_5b.py)
+# and Qwen2.5-14B (.../qwen2_5_14b.py), whose prefills run K3 at Dh 64 and
+# 128, and Mamba2-130M (.../mamba2_130m.py), which runs K4
+DENSE_ARCH, LARGE_ARCH, SSM_ARCH = "qwen2-0.5b", "qwen2.5-14b", "mamba2-130m"
+# the other configs at full width and 2 layers: one prefill and greedy decode
+ARCH_CONFIGS, ARCH_LAYERS, ARCH_NEW = ("glm4-9b", "qwen2.5-3b", "internvl2-1b"), 2, 8
+# Qwen2.5-14B's parity: a float32 copy on the card and one on the host at
+# full depth would need 59 GB of host RAM, so its first 4 layers (10.6 GB)
+PARITY_14B_LAYERS = 4
+# MusicGen-Medium's parity at full depth: 256 prefix embeddings (its
+# n_prefix) and 44 tokens after them
+MUSICGEN_ARCH, MUSICGEN_PROMPT = "musicgen-medium", 300
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:77"
 FA_SERVING = (4 * 14, 4 * 2, 1_024, 64)          # (BH, BKV, S, Dh) of a 4 x 1,024 prefill
-FA_SHAPES = [FA_SERVING + ("bfloat16",), FA_SERVING + ("float32",),
-             (6, 3, 1_000, 40, "float32"), (6, 3, 1_000, 40, "bfloat16")]
+# Dh 128: the same prefill of Qwen2.5-14B (40 heads, 8 KV; its serving path)
+FA_SERVING_14B = (4 * 40, 4 * 8, 1_024, 128)
+# K3 is held against mha_ref at the prefill shape of every arch whose
+# 4 x 1,024 prefill the run drives through it (fa_shapes), in both dtypes,
+# and at a ragged Dh-40 shape
+FA_PREFILL_ARCHS = (DENSE_ARCH, LARGE_ARCH) + ARCH_CONFIGS
+FA_RAGGED = [(6, 3, 1_000, 40, "float32"), (6, 3, 1_000, 40, "bfloat16")]
 # f32: tests/test_kernels.py:64's 2e-5 (K3's f32 kernel runs on the CUDA
 # cores in f32).  bf16: K3 multiplies the bf16 inputs exactly on the tensor
 # cores with f32 sums, and splits P into two bf16 parts (hi and lo) for PV,
@@ -1360,6 +1388,25 @@ def phase_whatif(torch, smi: str) -> dict:
     return out
 
 
+def fa_prefill_shape(cfg) -> tuple[int, int, int, int]:
+    """(BH, BKV, S, Dh) of K3 in a SERVE_BATCH x SERVE_PROMPT prefill."""
+    return (SERVE_BATCH * cfg.n_heads, SERVE_BATCH * cfg.n_kv_heads, SERVE_PROMPT,
+            cfg.head_dim)
+
+
+def fa_shapes() -> list[tuple]:
+    """K3's rows: each FA_PREFILL_ARCHS prefill shape once, in bf16 and
+    f32, then FA_RAGGED."""
+    from repro_torch.configs.base import get_config
+
+    shapes = []
+    for arch in FA_PREFILL_ARCHS:
+        shape = fa_prefill_shape(get_config(arch))
+        if shape not in shapes:
+            shapes.append(shape)
+    return [sh + (dt,) for sh in shapes for dt in ("bfloat16", "float32")] + FA_RAGGED
+
+
 def phase_kernel_k3(torch, smi: str) -> dict:
     """K3 against ``mha_ref`` on the same inputs, with times."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1368,7 +1415,7 @@ def phase_kernel_k3(torch, smi: str) -> dict:
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results, failed = {}, []
-    for bh, bkv, s, dh, dtype_name in FA_SHAPES:
+    for bh, bkv, s, dh, dtype_name in fa_shapes():
         dtype = getattr(torch, dtype_name)
         tol = FA_TOLERANCE[dtype_name]
         q = torch.randn((bh, s, dh), generator=gen, device=dev).to(dtype)
@@ -1508,11 +1555,12 @@ def phase_kernel_k4(torch, smi: str) -> dict:
     return results
 
 
-def _greedy_with_logits(torch, M, params, cfg, prompt, n_new):
+def _greedy_with_logits(torch, M, params, cfg, prompt, n_new, embeds=None):
     """Greedy tokens and the fp32 logits each was chosen from (prefill's
-    first), through the model's prefill and decode steps."""
+    first), through the model's prefill (with ``embeds``, if given) and
+    decode steps."""
     S = prompt.shape[1]
-    logits, caches = M.prefill(params, cfg, prompt, S + n_new)
+    logits, caches = M.prefill(params, cfg, prompt, S + n_new, embeds=embeds)
     steps = [logits.float().cpu()]
     toks = [torch.argmax(logits, dim=-1)]
     for i in range(n_new - 1):
@@ -1523,28 +1571,39 @@ def _greedy_with_logits(torch, M, params, cfg, prompt, n_new):
 
 
 def phase_lm_parity(torch, smi: str, arch: str, kernel: str,
-                    phase: str = "lm-parity") -> dict:
+                    phase: str = "lm-parity", n_layers: int = 0,
+                    prompt_len: int = PARITY_PROMPT, depth_cut: str = "") -> dict:
     """Full-width ``arch`` in float32, one weight set: the model on the card
     (its prefill through ``kernel``) against the same model on the CPU (the
     plain versions).  A token mismatch fails unless the CPU's top-2 logit
-    gap at that step is under the tolerance (a near tie)."""
+    gap at that step is under the tolerance (a near tie).  ``n_layers``
+    cuts the depth (0: the published depth), for the reason ``depth_cut``
+    states; a config with a frontend takes its ``n_prefix`` embeddings,
+    drawn in numpy from SEED, on the first positions of the prompt."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
 
     torch.backends.cuda.matmul.allow_tf32 = False     # full f32 products, stated
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    published = get_config(arch)
+    cfg = dataclasses.replace(published, dtype="float32",
+                              n_layers=n_layers or published.n_layers)
     # one generator seed on the card gives both copies the same weights
     params = {d: M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), d)
               for d in (DEVICE, "cpu")}
-    prompt = np.random.default_rng([SEED, 3]).integers(0, cfg.vocab_size, (1, PARITY_PROMPT))
+    prompt = np.random.default_rng([SEED, 3]).integers(0, cfg.vocab_size, (1, prompt_len))
+    embeds = None
+    if cfg.frontend is not None:
+        embeds = torch.from_numpy(np.random.default_rng([SEED, 6]).standard_normal(
+            (1, cfg.n_prefix, cfg.d_model), dtype=np.float32))
     before = launches(kernel)
     with torch.inference_mode():
         gpu_toks, gpu_logits = _greedy_with_logits(
-            torch, M, params[DEVICE], cfg, torch.from_numpy(prompt).to(DEVICE), PARITY_NEW)
+            torch, M, params[DEVICE], cfg, torch.from_numpy(prompt).to(DEVICE), PARITY_NEW,
+            None if embeds is None else embeds.to(DEVICE))
         kernel_launches = launches(kernel) - before
         cpu_toks, cpu_logits = _greedy_with_logits(
-            torch, M, params["cpu"], cfg, torch.from_numpy(prompt), PARITY_NEW)
+            torch, M, params["cpu"], cfg, torch.from_numpy(prompt), PARITY_NEW, embeds)
     gpu_toks, cpu_toks = gpu_toks[0].tolist(), cpu_toks[0].tolist()
     diffs, gaps, verdict = [], [], "equal"
     for i, (a, b) in enumerate(zip(gpu_toks, cpu_toks)):
@@ -1556,7 +1615,10 @@ def phase_lm_parity(torch, smi: str, arch: str, kernel: str,
             break
     out = {"phase": phase, "arch": arch, "dtype": "float32",
            "params": sum(t.numel() for t in params["cpu"].parameters()),
-           "prompt": PARITY_PROMPT, "new_tokens": PARITY_NEW, "tolerance": LM_PARITY_TOL,
+           "layers": cfg.n_layers, "published_layers": published.n_layers,
+           "depth_cut": depth_cut or "none",
+           "prefix_embeds": 0 if embeds is None else cfg.n_prefix, "pos_emb": cfg.pos_emb,
+           "prompt": prompt_len, "new_tokens": PARITY_NEW, "tolerance": LM_PARITY_TOL,
            "prefill_logits_max_abs_diff": diffs[0], "step_logits_max_abs_diff": diffs,
            "cpu_top2_gaps": gaps, "tokens_card": gpu_toks, "tokens_cpu": cpu_toks,
            "tokens": verdict, "launches": {kernel: kernel_launches}, "card": smi}
@@ -1650,6 +1712,74 @@ def phase_serve_alone(torch, smi: str, params, arch: str,
     if tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW):
         raise AssertionError(f"{phase}: tokens of shape {tuple(toks.shape)}")
     return out
+
+
+def phase_arch_configs(torch, smi: str, k3: dict | None) -> dict:
+    """Each of ARCH_CONFIGS at its published width, cut to ARCH_LAYERS
+    layers, in bf16 with random weights from SEED: one prefill of
+    SERVE_BATCH x SERVE_PROMPT tokens (a frontend config's first
+    ``n_prefix`` positions take embeddings drawn in numpy from SEED), then
+    ARCH_NEW greedy tokens.  Finite logits, tokens inside the vocabulary,
+    K3 launched once a layer by the prefill, and K3 held against
+    ``mha_ref`` at that prefill's shape by the kernel-K3 phase (``k3``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    rows, problems = {}, []
+    for arch in ARCH_CONFIGS:
+        published = get_config(arch)
+        cfg = dataclasses.replace(published, n_layers=ARCH_LAYERS)
+        params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+        rng = np.random.default_rng([SEED, 7])
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                (SERVE_BATCH, SERVE_PROMPT))).to(DEVICE)
+        embeds = None
+        if cfg.frontend is not None:
+            embeds = torch.from_numpy(rng.standard_normal(
+                (SERVE_BATCH, cfg.n_prefix, cfg.d_model), dtype=np.float32)).to(DEVICE)
+        before = launches("flash_attention")
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = M.prefill(params, cfg, prompts, SERVE_PROMPT + ARCH_NEW,
+                                       embeds=embeds)
+            first = torch.argmax(logits, dim=-1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n_launches = launches("flash_attention") - before
+            toks = M.decode_greedy(params, cfg, first, caches, SERVE_PROMPT, ARCH_NEW)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        finite = bool(torch.isfinite(logits).all())
+        k3_row = (k3 or {}).get(fa_prefill_shape(cfg) + (cfg.dtype,))
+        k3_ok = k3_row is not None and k3_row["ok"]
+        in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+        row = {"phase": "arch-configs", "arch": arch, "dtype": cfg.dtype,
+               "layers": cfg.n_layers, "published_layers": published.n_layers,
+               "depth_cut": f"{ARCH_LAYERS} of {published.n_layers} layers; width as "
+                            f"published", "d_model": cfg.d_model, "heads": cfg.n_heads,
+               "kv_heads": cfg.n_kv_heads, "d_head": cfg.head_dim, "d_ff": cfg.d_ff,
+               "vocab": cfg.vocab_size,
+               "params": sum(t.numel() for t in params.parameters()),
+               "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+               "prefix_embeds": 0 if embeds is None else cfg.n_prefix,
+               "new_tokens": ARCH_NEW, "prefill_ms": (t1 - t0) * 1e3,
+               "decode_ms_per_step": (t2 - t1) * 1e3 / (ARCH_NEW - 1),
+               "finite_logits": finite, "tokens_in_vocab": in_vocab,
+               "tokens_shape": list(toks.shape), "launches": {"flash_attention": n_launches},
+               "k3_shape": list(fa_prefill_shape(cfg)),
+               "k3_max_abs_err": None if k3_row is None else k3_row["max_abs_err"],
+               "k3_against_plain": k3_ok, "card": smi}
+        emit(row)
+        rows[arch] = row
+        if not (finite and in_vocab and k3_ok and n_launches == cfg.n_layers
+                and tuple(toks.shape) == (SERVE_BATCH, ARCH_NEW)):
+            problems.append(arch)
+        del params, caches, logits, embeds
+        torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"arch-configs: {problems} failed their checks")
+    return rows
 
 
 def serve_params(torch, arch: str):
@@ -1763,6 +1893,13 @@ def main() -> int:
     k3 = run("kernel-K3", phase_kernel_k3, torch, smi)
     run("lm-parity", phase_lm_parity, torch, smi, DENSE_ARCH, "flash_attention")
     serving = {"flash_attention": serving_path(DENSE_ARCH, "flash_attention", "")}
+    run("arch-configs", phase_arch_configs, torch, smi, k3)
+    run("lm-parity-14b", phase_lm_parity, torch, smi, LARGE_ARCH, "flash_attention",
+        "lm-parity-14b", PARITY_14B_LAYERS, PARITY_PROMPT,
+        "a float32 copy on the host at full depth would need 59 GB of host RAM")
+    run("lm-parity-musicgen", phase_lm_parity, torch, smi, MUSICGEN_ARCH, "flash_attention",
+        "lm-parity-musicgen", 0, MUSICGEN_PROMPT)
+    serving["flash_attention_14b"] = serving_path(LARGE_ARCH, "flash_attention", "-14b")
     k4 = run("kernel-K4", phase_kernel_k4, torch, smi)
     run("lm-parity-mamba", phase_lm_parity, torch, smi, SSM_ARCH, "ssd_scan",
         "lm-parity-mamba")
@@ -1787,8 +1924,7 @@ def main() -> int:
             "launches_kernel_phase": kernels["launches"][name],
             "launches_sim_kmeans": [cell["launches"][name] for cell in sim_kmeans],
             "share_of_bound": row["share_of_bound"], "device_ms": row["device_ms"]})
-    row = k3[FA_SERVING + ("bfloat16",)]
-    bh, bkv, s, dh = FA_SERVING
+    row, big = k3[FA_SERVING + ("bfloat16",)], k3[FA_SERVING_14B + ("bfloat16",)]
     summary.append({
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
         "replaces": FA_REPLACES, "launches": serving["flash_attention"]["launches"][
@@ -1796,7 +1932,14 @@ def main() -> int:
         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "f32_core_ms": row["f32_core_ms"],
-        "shape": {"bh": bh, "bkv": bkv, "s": s, "dh": dh, "dtype": "bfloat16"}})
+        "shape": dict(zip(("bh", "bkv", "s", "dh"), FA_SERVING), dtype="bfloat16"),
+        # Qwen2.5-14B's prefill, Dh 128
+        "launches_serve_14b": serving["flash_attention_14b"]["launches"]["flash_attention"],
+        "max_abs_err_dh128": big["max_abs_err"], "ms_dh128": big["ms"],
+        "plain_ms_dh128": big["plain_ms"], "bound_ms_dh128": big["bound_ms"],
+        "bound_by_dh128": big["bound_by"], "library_ms_dh128": big["library_ms"],
+        "shape_dh128": dict(zip(("bh", "bkv", "s", "dh"), FA_SERVING_14B),
+                            dtype="bfloat16")})
     row = k4[(SSD_SERVING, False)]
     summary.append({
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,

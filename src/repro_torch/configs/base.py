@@ -2,21 +2,42 @@
 
 Ports ``repro.configs.base``: the same frozen ``ModelConfig`` (field for
 field but for the mesh-padding ones, so a configuration reads the same in
-both packages), the registry, ``get_config`` and ``reduced``.  Every
-registered architecture has an exact published ``ModelConfig`` plus a
-``reduced()`` variant for CPU tests.
+both packages) with its helpers (``is_attention_free``,
+``is_subquadratic``, ``supports_shape``, ``param_count``,
+``active_param_count``), the global shape set ``SHAPES``, the registry,
+``get_config``, ``list_configs`` and ``reduced``.  Every registered
+architecture has an exact published ``ModelConfig`` plus a ``reduced()``
+variant for CPU tests.
 
 Only the configurations the port can run are loaded (``_ensure_loaded``):
-``qwen2-0.5b`` and ``mamba2-130m`` so far.  The mesh-padding fields and
-``pad_for_mesh`` come with the multi-device slice, and the reference's
-shape set and its helpers with the code that reads them.
+the dense ``qwen2-0.5b``, ``qwen2.5-3b``, ``qwen2.5-14b`` and ``glm4-9b``,
+the frontend ``internvl2-1b`` and ``musicgen-medium``, and the SSM
+``mamba2-130m``.  The mesh-padding fields and ``pad_for_mesh`` come with
+the multi-device slice.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
-__all__ = ["ModelConfig", "register", "get_config", "reduced"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "register", "get_config",
+           "list_configs", "reduced"]
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -85,6 +106,23 @@ class ModelConfig:
         """Every layer's block kind, in layer order."""
         return tuple(self.block_pattern) * self.n_groups + tuple(self.tail_pattern)
 
+    @property
+    def is_attention_free(self) -> bool:
+        kinds = set(self.block_pattern) | set(self.tail_pattern)
+        return not kinds & {"attn", "local_attn", "moe"}
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if the arch never attends over the full sequence ("moe"
+        blocks carry full GQA attention)."""
+        kinds = set(self.block_pattern) | set(self.tail_pattern)
+        return not kinds & {"attn", "moe"}
+
+    def supports_shape(self, shape: ShapeSpec) -> tuple[bool, str]:
+        if shape.name == "long_500k" and not self.is_subquadratic:
+            return False, "full-attention arch: 500k decode skipped per assignment"
+        return True, ""
+
     # -- parameter counting --------------------------------------------------
     def param_count(self) -> int:
         d, dh = self.d_model, self.head_dim
@@ -111,6 +149,14 @@ class ModelConfig:
         total += d * (2 * self.n_layers + 1)     # norms
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        dense_like = replace(self, n_experts=self.experts_per_token)
+        return dense_like.param_count()
+
+
 _REGISTRY: dict[str, "ModelConfig"] = {}
 _REDUCED: dict[str, "ModelConfig"] = {}
 
@@ -133,7 +179,14 @@ def reduced(name: str) -> ModelConfig:
     return get_config(name, reduced=True)
 
 
+def list_configs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
 def _ensure_loaded() -> None:
-    if _REGISTRY:
-        return
-    from repro_torch.configs import mamba2_130m, qwen2_0_5b  # noqa: F401
+    # always import (a cached import is a dict lookup): a registry that is
+    # merely non-empty may hold only a config module imported on its own
+    from repro_torch.configs import (glm4_9b, internvl2_1b, mamba2_130m,  # noqa: F401
+                                     musicgen_medium, qwen2_0_5b, qwen2_5_14b,
+                                     qwen2_5_3b)

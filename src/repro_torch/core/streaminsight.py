@@ -67,7 +67,8 @@ evaluations and reports equal the reference's bit for bit, and so do the
 summaries of what-if plan cells (``AdaptationPlan``).  The persistent pool
 takes no lock (the reference's pool-creation lock is designed away): the
 first thread that runs a pooled sweep owns the pool, and a pooled sweep from
-any other thread raises.
+any other thread raises while the owner is alive; once it has ended, the
+next thread to run a pooled sweep takes the pool over.
 """
 
 from __future__ import annotations
@@ -369,13 +370,19 @@ def _mp_context():
 # lazily on the first sweep heavy enough to want it and reused for the life
 # of the process, like Pilot-Streaming's warm resource containers.
 #
-# One thread owns the pool: the first to run a pooled sweep claims it with
-# an atomic ``dict.setdefault``, and only that thread creates, replaces or
-# resets it, so the pool state has a single writer and no lock.
+# One live thread owns the pool: the first to run a pooled sweep claims it
+# with an atomic ``dict.setdefault``, and only that thread creates, replaces
+# or resets it, so the pool state has a single writer and no lock.  Once
+# the owner has ended, the next thread to run a pooled sweep takes the pool
+# over by claiming the next generation, again by ``setdefault``: of threads
+# that race for it, exactly one wins.  ``_pool_owner[n]`` is the
+# ``threading.Thread`` of the n-th owner; generations are only ever added,
+# so the latest is the owner.  Owners are told apart by their ``Thread``:
+# an ident may be reused by a thread started after the owner has ended.
 
 _pool: concurrent.futures.ProcessPoolExecutor | None = None
 _pool_workers = 0
-_pool_owner: dict[str, int] = {}
+_pool_owner: dict[int, threading.Thread] = {}
 
 # Auto-switch threshold on the summed cell cost estimate
 # (n_messages × points × centroids).  Calibrated on the 2-core reference
@@ -397,20 +404,45 @@ def estimated_cost(experiments: list) -> float:
     return float(total)
 
 
+def _pool_generation() -> tuple[int, threading.Thread | None]:
+    """(generation, ``Thread``) of the pool's owner; (-1, None) if it has
+    none."""
+    n = -1
+    while n + 1 in _pool_owner:
+        n += 1
+    return n, _pool_owner.get(n)
+
+
 def _claim_pool() -> None:
-    """Make the calling thread the pool's owner, or raise if another
-    thread already is."""
-    me = threading.get_ident()
-    owner = _pool_owner.setdefault("thread", me)
-    if owner != me:
+    """Make the calling thread the pool's owner if it has none, or raise if
+    another thread is."""
+    me = threading.current_thread()
+    _n, owner = _pool_generation()
+    if owner is None:
+        _pool_owner.setdefault(0, me)
+        _n, owner = _pool_generation()
+    if owner is not me:
         raise RuntimeError(
             "the persistent process pool belongs to the thread that first "
             "ran a pooled sweep; run pooled sweeps from that thread, or pass "
             "parallel=False")
 
 
+def _take_over_pool() -> None:
+    """While the pool's owner has ended, claim the next generation for the
+    calling thread.  A thread that loses the race reads the winner as the
+    owner: it tries the generation after only if the winner has ended too,
+    and else ``_claim_pool`` refuses it."""
+    me = threading.current_thread()
+    n, owner = _pool_generation()
+    while owner is not None and owner is not me and not owner.is_alive():
+        _pool_owner.setdefault(n + 1, me)
+        n, owner = _pool_generation()
+
+
 def _get_pool(workers: int) -> concurrent.futures.ProcessPoolExecutor:
     global _pool, _pool_workers
+    _take_over_pool()
     _claim_pool()
     if _pool is None or _pool_workers < workers:
         if _pool is not None:

@@ -5,16 +5,20 @@ Ports ``repro.launch.serve``.  Requests arrive as broker messages; the
 engine micro-batches up to ``batch_max`` of them per partition, and each
 micro-batch runs prefill plus greedy decode as a compute-unit on a
 ``torch://`` pilot.  On the card the prefill runs kernel K3 as its
-attention (the dense family, ``--arch qwen2-0.5b``) or kernel K4 as its SSD
-scan (the SSM family, ``--arch mamba2-130m``).  The model is read-only and
-every micro-batch makes its own caches (K/V or SSM state), so the consumer
-threads share it without a lock.
+attention (the dense and frontend configs: ``qwen2-0.5b``, ``qwen2.5-3b``,
+``qwen2.5-14b``, ``glm4-9b``, ``internvl2-1b``, ``musicgen-medium``) or
+kernel K4 as its SSD scan (``mamba2-130m``).  Like the reference's serve,
+it passes no frontend ``embeds``: a request is its token ids.  The model is
+read-only and every micro-batch makes its own caches (K/V or SSM state), so
+the consumer threads share it without a lock.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium --reduced \\
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduced --device cpu \\
         --prompt-len 16
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 32 \\
-        --prompt-len 1024 --new-tokens 32 --batch-max 4      # full width, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --requests 32 \\
+        --prompt-len 1024 --new-tokens 8 --batch-max 4       # full width, on the card
 
 A Mamba-2 prompt is at most the config's SSD chunk long or a multiple of it
 (the reference's contract).

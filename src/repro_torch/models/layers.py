@@ -18,8 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["dense_init", "embed_init", "norm_init", "apply_norm",
-           "rope_frequencies", "apply_rope", "mlp_init", "apply_mlp",
-           "embedding_init", "embed_tokens", "logits_head", "param_dict"]
+           "rope_frequencies", "apply_rope", "sinusoidal_pos_emb", "mlp_init",
+           "apply_mlp", "embedding_init", "embed_tokens", "logits_head", "param_dict"]
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +91,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos_emb(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """positions (...,) -> (..., d_model) float32 fixed sinusoidal embedding,
+    ``[sin | cos]`` of the position times d_model/2 frequencies."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device)
+                      / half)
+    angles = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

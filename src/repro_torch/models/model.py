@@ -9,8 +9,12 @@ blocks in layer order instead of groups stacked along a leading axis.
 arrays) into this layout by copies alone, so both packages can run the
 same weights.
 
-Modality frontends, sinusoidal positions, ``loss_fn`` and training are
-not in this slice (ROADMAP queue 1).
+Modality frontends are stubs, as in the reference: ``forward`` and
+``prefill`` take ``embeds`` (B, P, d), precomputed frame or patch
+embeddings that replace the token embeddings of the first P <= S
+positions of a config with a ``frontend``.  Sinusoidal positions are added
+to the input embeddings in prefill and decode.  ``loss_fn`` and training
+are not in this slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (apply_norm, embed_tokens, embedding_init,
-                                       logits_head, norm_init, param_dict)
+                                       logits_head, norm_init, param_dict,
+                                       sinusoidal_pos_emb)
 
 __all__ = ["init_params", "params_from_numpy", "forward", "cache_init", "prefill",
            "decode_step", "decode_greedy", "greedy_generate"]
@@ -32,17 +37,9 @@ def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_supported(cfg) -> None:
-    if cfg.frontend is not None or cfg.pos_emb == "sinusoidal":
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends and sinusoidal positions are not "
-            f"ported yet (ROADMAP queue 1)")
-
-
 def init_params(cfg, generator: torch.Generator, device="cuda") -> nn.ModuleDict:
     """Random weights with the reference's distributions (not its bits),
     drawn from ``generator`` on its own device and placed on ``device``."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     return nn.ModuleDict({
@@ -60,7 +57,6 @@ def params_from_numpy(cfg, tree, device="cuda") -> nn.ModuleDict:
     float32 (the SSM's ``A_log``, ``D`` and ``dt_bias`` in every model
     dtype); the rest are cast to ``cfg.dtype`` (exact for a tree in that
     dtype)."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
 
@@ -93,11 +89,27 @@ def _positions(batch: int, start: int, length: int, device) -> torch.Tensor:
     return pos[None].expand(batch, length)
 
 
-def forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_inputs(params, cfg, tokens, embeds, positions):
+    """Token embeddings in the model dtype; with a frontend and ``embeds``
+    (B, P, d), positions 0..P-1 take ``embeds`` instead; then the
+    sinusoidal position embedding, where the config has one."""
+    x = embed_tokens(params["embedding"], tokens).to(_dtype(cfg))
+    if cfg.frontend is not None and embeds is not None:
+        if embeds.shape[1] > x.shape[1]:
+            raise ValueError(f"embeds cover {embeds.shape[1]} positions, more than "
+                             f"the prompt's {x.shape[1]}")
+        x[:, :embeds.shape[1]] = embeds.to(x.dtype)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_pos_emb(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
+def forward(params, cfg, tokens: torch.Tensor, embeds: torch.Tensor | None = None
+            ) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) float32."""
     B, S = tokens.shape
     positions = _positions(B, 0, S, tokens.device)
-    x = embed_tokens(params["embedding"], tokens).to(_dtype(cfg))
+    x = _embed_inputs(params, cfg, tokens, embeds, positions)
     x, _ = tf.apply_stack(params["stack"], cfg, x, positions)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     return logits_head(params["embedding"], cfg, x)
@@ -113,12 +125,13 @@ def cache_init(cfg, batch, cache_len, dtype=None, device="cuda"):
                                device=resolve_device(device))
 
 
-def prefill(params, cfg, tokens: torch.Tensor, cache_len: int | None = None):
+def prefill(params, cfg, tokens: torch.Tensor, cache_len: int | None = None,
+            embeds: torch.Tensor | None = None):
     """Process a prompt, returning (last-position logits (B, V) fp32, the
     per-layer caches filled with its K/V)."""
     B, S = tokens.shape
     positions = _positions(B, 0, S, tokens.device)
-    x = embed_tokens(params["embedding"], tokens).to(_dtype(cfg))
+    x = _embed_inputs(params, cfg, tokens, embeds, positions)
     caches = cache_init(cfg, B, cache_len or S, device=tokens.device)
     x, caches = tf.apply_stack(params["stack"], cfg, x, positions, caches)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
@@ -130,6 +143,9 @@ def decode_step(params, cfg, token: torch.Tensor, caches, pos: int):
     """token (B,); ``pos`` the position of this token.  Returns (logits
     (B, V) fp32, caches) with the caches updated in place."""
     x = embed_tokens(params["embedding"], token[:, None]).to(_dtype(cfg))
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_pos_emb(_positions(x.shape[0], pos, 1, x.device),
+                                   cfg.d_model).to(x.dtype)
     x, caches = tf.decode_stack(params["stack"], cfg, x, caches, pos)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     return logits_head(params["embedding"], cfg, x)[:, 0], caches

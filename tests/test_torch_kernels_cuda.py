@@ -199,7 +199,11 @@ def _qkv(bh, bkv, s, dh, dtype, device, seed=0):
 @pytest.mark.parametrize("bh,bkv,s,dh", [(56, 8, 1024, 64), (6, 3, 1000, 40),
                                          (4, 4, 128, 64), (8, 2, 256, 64),
                                          (2, 1, 64, 128), (14, 2, 48, 64),
-                                         (3, 1, 1, 16), (2, 2, 65, 33)])
+                                         (3, 1, 1, 16), (2, 2, 65, 33),
+                                         # Qwen2.5-14B's, GLM-4-9B's and MusicGen's
+                                         # prefill heads at S 256
+                                         (160, 32, 256, 128), (128, 8, 256, 128),
+                                         (96, 96, 256, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_flash_attention_kernel_matches_plain(device, bh, bkv, s, dh, dtype):
     q, k, v = _qkv(bh, bkv, s, dh, dtype, device)

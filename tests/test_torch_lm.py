@@ -171,11 +171,20 @@ def test_local_window_raises(f32):
             fn(p, tcfg, x, pos, window=4)
 
 
-@pytest.mark.parametrize("small", [False, True], ids=["published", "reduced"])
-def test_config_is_the_references(small):
+# every ported arch; qwen2-0.5b's two cases keep their ids
+CONFIG_CASES = [pytest.param(ARCH, small, id=kind)
+                for small, kind in ((False, "published"), (True, "reduced"))] + [
+    pytest.param(arch, small, id=f"{arch}-{kind}")
+    for arch in ("mamba2-130m", "glm4-9b", "qwen2.5-3b", "qwen2.5-14b", "internvl2-1b",
+                 "musicgen-medium")
+    for small, kind in ((False, "published"), (True, "reduced"))]
+
+
+@pytest.mark.parametrize("arch,small", CONFIG_CASES)
+def test_config_is_the_references(arch, small):
     """Every field the port's config has equals the reference's, and the
     reference leaves its mesh padding (not ported yet) unset."""
-    want, got = jax_get_config(ARCH, reduced=small), get_config(ARCH, reduced=small)
+    want, got = jax_get_config(arch, reduced=small), get_config(arch, reduced=small)
     for f in dataclasses.fields(got):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     assert (want.heads_p, want.kv_heads_p, want.vocab_p) == (

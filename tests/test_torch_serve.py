@@ -1,6 +1,7 @@
 """The port's serving path end to end on the CPU: requests -> Broker ->
 ThreadedStreamingEngine -> ``torch://`` pilot -> greedy generation, with
-the reduced ``qwen2-0.5b`` and ``mamba2-130m`` in float32.  Micro-batching
+every reduced config the port has in float32 (the frontend configs take
+no ``embeds`` here: the serving path passes none, as the reference's).  Micro-batching
 must not change what a request gets: each request's tokens equal
 ``greedy_generate`` on its own prompt (float32, so batched and single-row
 sums cannot flip an argmax)."""
@@ -54,6 +55,12 @@ def test_serve_mamba_answers_every_request_as_greedy_generate():
     _check_served(cfg, params, prompts)
 
 
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen2.5-3b", "qwen2.5-14b", "internvl2-1b",
+                                  "musicgen-medium"])
+def test_serve_dense_and_frontend_archs_answer_as_greedy_generate(arch):
+    _check_served(*_setup(arch, PROMPT))
+
+
 def test_serve_cli_runs_reduced_on_the_cpu(capsys):
     S.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu", "--requests", "4",
             "--prompt-len", "8", "--new-tokens", "3", "--batch-max", "2"])
@@ -74,3 +81,11 @@ def test_serve_on_a_missing_card_raises(setup):
         pytest.skip("a card is present: the missing-card path cannot be taken")
     with pytest.raises(RuntimeError, match="cuda"):
         S.serve(cfg, params, prompts, new_tokens=NEW, device="cuda")
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "musicgen-medium"])
+def test_serve_cli_runs_reduced_new_archs_on_the_cpu(capsys, arch):
+    S.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "4",
+            "--prompt-len", "8", "--new-tokens", "3", "--batch-max", "2"])
+    out = capsys.readouterr().out
+    assert "served 4/4 requests" in out and "retries=0 failed=0" in out

@@ -129,11 +129,123 @@ def test_one_thread_claims_the_pool_under_contention():
             w.join(60.0)
         assert not any(w.is_alive() for w in workers)
         owners = [tid for kind, tid in outcomes if kind == "owner"]
-        assert len(outcomes) == 32 and owners == [port._pool_owner["thread"]]
+        assert len(outcomes) == 32 and owners == [port._pool_generation()[1].ident]
     finally:
         sys.setswitchinterval(interval)
         port._pool_owner.clear()
         port._pool_owner.update(saved)
+
+
+def test_an_ended_owner_hands_the_pool_over():
+    """Three threads in turn, each joined before the next starts, run a
+    pooled sweep: each takes the pool over from the one before it, and
+    every pooled sweep equals the serial records.  Between two sweeps a
+    thread that stays alive is started first, so it may take the ended
+    owner's ident: that does not keep the pool from the next sweep."""
+    serial = port.StreamInsight()
+    serial.run(port.ExperimentDesign(**DESIGNS["sweep"]), parallel=False)
+    saved = dict(port._pool_owner)
+    port._pool_owner.clear()
+    records, errors = [], []
+    release = threading.Event()
+    spacers = []
+
+    def sweep():
+        try:
+            pooled = port.StreamInsight(max_workers=2)
+            pooled.run(port.ExperimentDesign(**DESIGNS["sweep"]), parallel="force")
+            records.append(pooled.records())
+        except Exception as exc:  # noqa: BLE001 — reported by the asserts below
+            errors.append(exc)
+
+    try:
+        for _ in range(3):
+            t = threading.Thread(target=sweep)
+            t.start()
+            t.join(120.0)
+            assert not t.is_alive()
+            spacers.append(threading.Thread(target=release.wait, args=(120.0,)))
+            spacers[-1].start()
+        assert errors == [] and len(records) == 3
+        assert all(_records_equal(serial.records(), got) for got in records)
+    finally:
+        release.set()
+        for t in spacers:
+            t.join(60.0)
+        port._pool_owner.clear()
+        port._pool_owner.update(saved)
+
+
+def test_one_thread_takes_over_an_ended_owner_under_contention():
+    """The owner has ended; 32 threads race to take the pool over at a 1 us
+    switch interval, and each stays alive until all have tried: exactly
+    one becomes the owner, and every other one is refused."""
+    saved = dict(port._pool_owner)
+    port._pool_owner.clear()
+    ended = threading.Thread(target=port._claim_pool)
+    ended.start()
+    ended.join(60.0)
+    interval = sys.getswitchinterval()
+    outcomes = []
+    tried = threading.Barrier(32)
+    start = threading.Barrier(32)
+
+    def take_over():
+        start.wait(30.0)
+        try:
+            port._take_over_pool()
+            port._claim_pool()
+            outcomes.append(("owner", threading.get_ident()))
+        except RuntimeError:
+            outcomes.append(("refused", threading.get_ident()))
+        tried.wait(30.0)
+
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=take_over) for _ in range(32)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(60.0)
+        assert not any(w.is_alive() for w in workers)
+        owners = [tid for kind, tid in outcomes if kind == "owner"]
+        assert len(outcomes) == 32 and owners == [port._pool_generation()[1].ident]
+    finally:
+        sys.setswitchinterval(interval)
+        port._pool_owner.clear()
+        port._pool_owner.update(saved)
+
+
+def test_a_stale_take_over_tries_the_next_generation(monkeypatch):
+    """A thread reads generation 0's owner as ended; before its claim of
+    generation 1 lands, another thread claims generation 1, and ends too.
+    The late thread still takes the pool over, at generation 2."""
+    ended = [threading.Thread(target=lambda: None) for _ in range(2)]
+    for t in ended:
+        t.start()
+        t.join(60.0)
+
+    class RacedOwners(dict):
+        def setdefault(self, key, default=None):
+            if key == 1:
+                super().setdefault(1, ended[1])     # the other thread wins first
+            return super().setdefault(key, default)
+
+    monkeypatch.setattr(port, "_pool_owner", RacedOwners({0: ended[0]}))
+    outcomes = []
+
+    def take_over():
+        try:
+            port._take_over_pool()
+            port._claim_pool()
+            outcomes.append("owner")
+        except RuntimeError:
+            outcomes.append("refused")
+
+    late = threading.Thread(target=take_over)
+    late.start()
+    late.join(60.0)
+    assert outcomes == ["owner"] and port._pool_generation() == (2, late)
 
 
 def test_auto_switch_and_cost_estimate_equal_reference():
