@@ -67,9 +67,11 @@ Phases, each printing JSON lines on standard output:
   sequential replay of the same seeds;
 * ``kernel-K3`` — kernel K3 (``flash_attention``: bf16 on the tensor cores,
   f32 on the CUDA cores) held against its plain version ``mha_ref`` at the
-  prefill shapes of Qwen2-0.5B (Dh 64), Qwen2.5-14B and GLM-4-9B (Dh 128),
-  bf16 and f32, and a ragged one, with CUDA-event times beside the bound
-  and SDPA;
+  prefill shape of every arch the run drives through it (Dh 64, 128 and
+  RecurrentGemma-2B's 256 with its window), bf16 and f32, a ragged one,
+  and where a window bites (Dh 256, window 2,048 at S 4,096; a window of
+  100 on the ragged shape), with CUDA-event times beside the bound and
+  SDPA (given the window as a boolean mask);
 * ``lm-parity`` — full-width Qwen2-0.5B in float32: prefill logits and
   greedy tokens of the model on the card (through K3) against the same
   model on the CPU (plain versions);
@@ -79,11 +81,12 @@ Phases, each printing JSON lines on standard output:
 * ``serve-alone`` — one such micro-batch generated in the main thread,
   without the engine, for comparison;
 * ``serve-profile`` — a shorter serve run under ``torch.profiler``;
-* ``arch-configs`` — GLM-4-9B, Qwen2.5-3B and InternVL2-1B at their
-  published widths, cut to 2 layers, bf16: one prefill of 4 x 1,024 tokens
-  (InternVL2's first 256 positions taking patch embeddings drawn from the
-  seed) and 8 greedy tokens; finite logits, tokens in the vocabulary, K3
-  once a layer;
+* ``arch-configs`` — GLM-4-9B, Qwen2.5-3B, InternVL2-1B and
+  Qwen3-235B-A22B (128 experts, top-8; ~12.4 GB of bf16 weights at 2
+  layers, ~470 GB at its 94) at their published widths, cut to 2 layers,
+  bf16: one prefill of 4 x 1,024 tokens (InternVL2's first 256 positions
+  taking patch embeddings drawn from the seed) and 8 greedy tokens; finite
+  logits, tokens in the vocabulary, K3 once a layer;
 * ``lm-parity-14b`` and ``lm-parity-musicgen`` — ``lm-parity`` for
   Qwen2.5-14B at full width, its first 4 of 48 layers (the host's float32
   copy at full depth would need 59 GB), and for MusicGen-Medium at full
@@ -92,6 +95,18 @@ Phases, each printing JSON lines on standard output:
 * ``serve-alone-14b``, ``serve-14b`` and ``serve-profile-14b`` — the three
   serving phases for Qwen2.5-14B at full width and depth in bf16 (29.5 GB
   of weights), whose prefill runs K3 at Dh 128;
+* ``lm-parity-recurrentgemma``, ``serve-alone-recurrentgemma``,
+  ``serve-recurrentgemma`` and ``serve-profile-recurrentgemma`` — the same
+  four phases for RecurrentGemma-2B at full width and depth (~5.3 GB of
+  bf16 weights), whose 8 local-attention layers run K3 at Dh 256 with the
+  2,048 window and whose 18 RG-LRU layers scan in plain torch; the profile
+  gives the scan's device time;
+* ``lm-parity-granite``, ``serve-alone-granite``, ``serve-granite`` and
+  ``serve-profile-granite`` — the same for Granite-3.0-3B-A800M (~6.6 GB),
+  32 MoE layers of 40 experts, top-8: the parity phase counts the (layer,
+  token) top-k choices that differ between card and CPU and the CPU's
+  smallest top-k gap, and the profile gives the device time of routing,
+  dispatch, the expert GEMMs and the combine;
 * ``kernel-K4`` — kernel K4 (``ssd_scan``, three CUDA kernels a call) held
   against its plain version ``ssd_ref`` (and a float64 run of it) at the
   prefill shape of Mamba2-130M, a ragged length, with an initial state, and
@@ -112,6 +127,7 @@ when any phase fails.  Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -204,8 +220,14 @@ TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py's
 # and Qwen2.5-14B (.../qwen2_5_14b.py), whose prefills run K3 at Dh 64 and
 # 128, and Mamba2-130M (.../mamba2_130m.py), which runs K4
 DENSE_ARCH, LARGE_ARCH, SSM_ARCH = "qwen2-0.5b", "qwen2.5-14b", "mamba2-130m"
-# the other configs at full width and 2 layers: one prefill and greedy decode
-ARCH_CONFIGS, ARCH_LAYERS, ARCH_NEW = ("glm4-9b", "qwen2.5-3b", "internvl2-1b"), 2, 8
+# RecurrentGemma-2B (.../recurrentgemma_2b.py: RG-LRU layers and local
+# attention at Dh 256, window 2,048) and Granite-3.0-3B-A800M
+# (.../granite_moe_3b_a800m.py: 40 experts, top-8) at full width and depth
+HYBRID_ARCH, MOE_ARCH = "recurrentgemma-2b", "granite-moe-3b-a800m"
+# the other configs at full width and 2 layers: one prefill and greedy decode;
+# Qwen3-235B-A22B's 94 layers hold ~470 GB of bf16 weights, its 2 ~12.4 GB
+ARCH_CONFIGS, ARCH_LAYERS, ARCH_NEW = ("glm4-9b", "qwen2.5-3b", "internvl2-1b",
+                                       "qwen3-moe-235b-a22b"), 2, 8
 # Qwen2.5-14B's parity: a float32 copy on the card and one on the host at
 # full depth would need 59 GB of host RAM, so its first 4 layers (10.6 GB)
 PARITY_14B_LAYERS = 4
@@ -217,11 +239,17 @@ FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:77"
 FA_SERVING = (4 * 14, 4 * 2, 1_024, 64)          # (BH, BKV, S, Dh) of a 4 x 1,024 prefill
 # Dh 128: the same prefill of Qwen2.5-14B (40 heads, 8 KV; its serving path)
 FA_SERVING_14B = (4 * 40, 4 * 8, 1_024, 128)
-# K3 is held against mha_ref at the prefill shape of every arch whose
-# 4 x 1,024 prefill the run drives through it (fa_shapes), in both dtypes,
-# and at a ragged Dh-40 shape
-FA_PREFILL_ARCHS = (DENSE_ARCH, LARGE_ARCH) + ARCH_CONFIGS
-FA_RAGGED = [(6, 3, 1_000, 40, "float32"), (6, 3, 1_000, 40, "bfloat16")]
+# Dh 256: RecurrentGemma-2B's (10 heads, 1 KV, window 2,048; BH, BKV, S, Dh, window)
+FA_SERVING_RG = (4 * 10, 4 * 1, 1_024, 256, 2_048)
+# K3 is held against mha_ref at the prefill shape (and window) of every arch
+# whose 4 x 1,024 prefill the run drives through it (fa_shapes), in both
+# dtypes, at a ragged Dh-40 shape, and where a window bites: RecurrentGemma's
+# Dh 256 and window 2,048 at S 4,096 (its 40 prefill rows), and a small
+# window on the ragged shape.  Rows are (BH, BKV, S, Dh, window, dtype).
+FA_PREFILL_ARCHS = (DENSE_ARCH, LARGE_ARCH, HYBRID_ARCH, MOE_ARCH) + ARCH_CONFIGS
+FA_RAGGED = [(6, 3, 1_000, 40, 0, "float32"), (6, 3, 1_000, 40, 0, "bfloat16")]
+FA_WINDOWED = [(40, 4, 4_096, 256, 2_048, "bfloat16"), (40, 4, 4_096, 256, 2_048, "float32"),
+               (6, 3, 1_000, 40, 100, "bfloat16"), (6, 3, 1_000, 40, 100, "float32")]
 # f32: tests/test_kernels.py:64's 2e-5 (K3's f32 kernel runs on the CUDA
 # cores in f32).  bf16: K3 multiplies the bf16 inputs exactly on the tensor
 # cores with f32 sums, and splits P into two bf16 parts (hi and lo) for PV,
@@ -239,6 +267,12 @@ PARITY_PROMPT, PARITY_NEW = 100, 8                # ragged against K3's 64-row t
 # f32 on card and CPU sum in other orders (and K3's online softmax against
 # mha_ref's) through 24 layers; random-weight logits are O(1)
 LM_PARITY_TOL = 1e-3
+# an MoE router's top-k is a discontinuity: where the card's and the CPU's
+# f32 gates straddle the k-th and (k+1)-th expert, the two pick different
+# experts.  Such flips are expected where the CPU's gap between them is near
+# the f32 noise of the gates; more than ROUTE_FLIPS_MAX flips at gaps above
+# ROUTE_FLIP_MARGIN fail the phase
+ROUTE_FLIP_MARGIN, ROUTE_FLIPS_MAX = 1e-5, 3
 # 8 new tokens, not 32: each decode step is host-bound (~60 ms alone, ~190 ms
 # under two consumer threads), and 32 took 24 s of the run
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 32, 1_024, 8
@@ -371,16 +405,24 @@ def launches(kernel: str) -> int:
     return next(c[kernel] for c in _counters() if kernel in c)
 
 
-def fa_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int):
+def visible_pairs(s: int, window: int = 0) -> int:
+    """(query, key) pairs that causal attention over S positions sees, with
+    a local ``window`` (0: none): min(i + 1, window) keys for query i."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def fa_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int, window: int = 0):
     """(least ms, what bounds it, ms of the same operations at the f32
     CUDA-core rate) of causal GQA attention: q, k, v read once and the
     output written once at the HBM rate, against the two products over the
-    S (S + 1) / 2 unmasked (query, key) pairs of each q row (2 Dh operations
-    each for QK^T and for PV, a multiply-add counted as 2) at the peak of
-    the input type (bf16 tensor cores; f32 CUDA cores, since 2e-5 is beyond
-    TF32)."""
+    unmasked (query, key) pairs of each q row (``visible_pairs``; 2 Dh
+    operations each for QK^T and for PV, a multiply-add counted as 2) at the
+    peak of the input type (bf16 tensor cores; f32 CUDA cores, since 2e-5 is
+    beyond TF32)."""
     t_bytes = (2 * bh + 2 * bkv) * s * dh * bytes_per_el / HBM_BYTES_PER_S
-    ops = 2.0 * bh * s * (s + 1) * dh
+    ops = 4.0 * bh * visible_pairs(s, window) * dh
     t_ops = ops / (BF16_OPS_PER_S if bytes_per_el == 2 else F32_OPS_PER_S)
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops) * 1e3, by, ops / F32_OPS_PER_S * 1e3
@@ -473,7 +515,7 @@ def phase_build(torch) -> dict:
     emit({"phase": "build", "kernel": "flash_attention",
           "dynamic_smem_bytes": {
               name: {f"dh{dh}": fa_ops.smem_bytes(dh, dtype=getattr(torch, name))
-                     for dh in (40, 64, 128)} for name in ("float32", "bfloat16")}})
+                     for dh in (40, 64, 128, 256)} for name in ("float32", "bfloat16")}})
     emit({"phase": "build", "kernel": "ssd_scan",
           "dynamic_smem_bytes": {f"n{n}": ssd_ops.smem_bytes(n) for n in (16, 128, 256)}})
     names = " ".join(k["symbol"] for k in kernels)
@@ -735,14 +777,15 @@ def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES
 
 def device_time_rows(prof) -> list[dict]:
     """Device self time by kernel (and memcpy/memset) from a ``torch.profiler``
-    run, largest first.  Only device-side events count: a CPU op's row also
-    carries the device time of the kernels it launched, and summing both
-    would count that time twice."""
+    run, largest first.  Only device-side kernel events count: a CPU op's
+    row also carries the device time of the kernels it launched, and a
+    ``record_function`` span's device-side row the time its kernels took,
+    so summing either with the kernels would count that time twice."""
     from torch.autograd import DeviceType
 
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CPU:
+        if ev.device_type == DeviceType.CPU or getattr(ev, "is_user_annotation", False):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -763,6 +806,46 @@ def host_time_rows(prof, top: int = 10) -> list[dict]:
             if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total > 0]
     rows.sort(key=lambda r: -r["host_ms"])
     return rows[:top]
+
+
+@contextlib.contextmanager
+def spans(torch, named: dict):
+    """Within the block, each function ``named[label] = (module, name)``
+    runs inside ``torch.profiler.record_function(label)``, so a profile
+    attributes the device time of the kernels it launches to ``label``
+    (``span_device_ms``).  The model's modules call these functions through
+    their module globals, which the block replaces and then restores."""
+    saved = []
+    for label, (module, name) in named.items():
+        fn = getattr(module, name)
+
+        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kwargs)
+
+        saved.append((module, name, fn))
+        setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def span_device_ms(prof, labels) -> dict:
+    """Device ms of the kernels launched inside each ``record_function``
+    span named in ``labels`` (the host-side span's device total), with its
+    calls; "not measured" where the profile holds no such span."""
+    from torch.autograd import DeviceType
+
+    out = {label: "not measured" for label in labels}
+    for ev in prof.key_averages():
+        if ev.key in out and ev.device_type == DeviceType.CPU:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            out[ev.key] = {"device_ms": us / 1e3, "calls": ev.count}
+    return out
 
 
 def kernel_device_ms(rows: list[dict], kernel: str) -> float:
@@ -1388,15 +1471,24 @@ def phase_whatif(torch, smi: str) -> dict:
     return out
 
 
-def fa_prefill_shape(cfg) -> tuple[int, int, int, int]:
-    """(BH, BKV, S, Dh) of K3 in a SERVE_BATCH x SERVE_PROMPT prefill."""
+def fa_prefill_shape(cfg) -> tuple[int, int, int, int, int]:
+    """(BH, BKV, S, Dh, window) of K3 in a SERVE_BATCH x SERVE_PROMPT
+    prefill (window: the config's local window where it has local-attention
+    layers, else 0)."""
+    window = cfg.local_window if "local_attn" in cfg.layer_kinds else 0
     return (SERVE_BATCH * cfg.n_heads, SERVE_BATCH * cfg.n_kv_heads, SERVE_PROMPT,
-            cfg.head_dim)
+            cfg.head_dim, window)
+
+
+def kernel_layers(cfg, kernel: str) -> int:
+    """Layers of ``cfg`` whose prefill launches ``kernel`` once."""
+    kinds = {"flash_attention": ("attn", "local_attn", "moe"), "ssd_scan": ("ssm",)}[kernel]
+    return sum(kind in kinds for kind in cfg.layer_kinds)
 
 
 def fa_shapes() -> list[tuple]:
     """K3's rows: each FA_PREFILL_ARCHS prefill shape once, in bf16 and
-    f32, then FA_RAGGED."""
+    f32, then FA_RAGGED and FA_WINDOWED."""
     from repro_torch.configs.base import get_config
 
     shapes = []
@@ -1404,45 +1496,53 @@ def fa_shapes() -> list[tuple]:
         shape = fa_prefill_shape(get_config(arch))
         if shape not in shapes:
             shapes.append(shape)
-    return [sh + (dt,) for sh in shapes for dt in ("bfloat16", "float32")] + FA_RAGGED
+    return ([sh + (dt,) for sh in shapes for dt in ("bfloat16", "float32")] + FA_RAGGED
+            + FA_WINDOWED)
 
 
 def phase_kernel_k3(torch, smi: str) -> dict:
-    """K3 against ``mha_ref`` on the same inputs, with times."""
+    """K3 against ``mha_ref`` on the same inputs, with times; SDPA on the
+    same operands, given a window that bites as an explicit boolean mask."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import mha_ref
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     results, failed = {}, []
-    for bh, bkv, s, dh, dtype_name in fa_shapes():
+    for bh, bkv, s, dh, window, dtype_name in fa_shapes():
         dtype = getattr(torch, dtype_name)
         tol = FA_TOLERANCE[dtype_name]
         q = torch.randn((bh, s, dh), generator=gen, device=dev).to(dtype)
         k = torch.randn((bkv, s, dh), generator=gen, device=dev).to(dtype)
         v = torch.randn((bkv, s, dh), generator=gen, device=dev).to(dtype)
-        got = fa_ops.flash_attention(q, k, v)
-        want = mha_ref(q, k, v)
+        got = fa_ops.flash_attention(q, k, v, window=window)
+        want = mha_ref(q, k, v, window=window)
         torch.cuda.synchronize()
         ok = bool(torch.allclose(got.float(), want.float(), **tol))
-        bound_ms, by, f32_core_ms = fa_bound(bh, bkv, s, dh, q.element_size())
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+        bound_ms, by, f32_core_ms = fa_bound(bh, bkv, s, dh, q.element_size(), window)
         q4, k4, v4 = q[None], k[None], v[None]       # head h reads kv head h // G
+        if 0 < window < s:
+            idx = torch.arange(s, device=dev)
+            mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - window)
+            library = lambda: sdpa(q4, k4, v4, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        else:
+            library = lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)  # noqa: E731
         row = {"phase": "kernel-K3", "bh": bh, "bkv": bkv, "s": s, "dh": dh,
-               "dtype": dtype_name, "ok": ok, "tolerance": tol,
+               "window": window, "dtype": dtype_name, "ok": ok, "tolerance": tol,
                "max_abs_err": float((got.float() - want.float()).abs().max()),
-               "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(q, k, v)),
-               "plain_ms": cuda_ms(torch, lambda: mha_ref(q, k, v)),
-               "library_ms": cuda_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True,
-                                                         enable_gqa=True)),
+               "ms": cuda_ms(torch, lambda: fa_ops.flash_attention(q, k, v, window=window)),
+               "plain_ms": cuda_ms(torch, lambda: mha_ref(q, k, v, window=window)),
+               "library_ms": cuda_ms(torch, library),
+               "library_max_abs_err": float((library().float() - want.float()).abs().max()),
                "bound_ms": bound_ms, "bound_by": by, "f32_core_ms": f32_core_ms,
                "card": smi}
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         emit(row)
-        results[(bh, bkv, s, dh, dtype_name)] = row
+        results[(bh, bkv, s, dh, window, dtype_name)] = row
         if not ok:
-            failed.append((bh, bkv, s, dh, dtype_name))
-        del q, k, v, got, want, q4, k4, v4
+            failed.append((bh, bkv, s, dh, window, dtype_name))
+        del q, k, v, got, want, q4, k4, v4, library
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"K3 disagrees with mha_ref at {failed}")
@@ -1570,6 +1670,27 @@ def _greedy_with_logits(torch, M, params, cfg, prompt, n_new, embeds=None):
     return torch.stack(toks, dim=1).cpu(), steps
 
 
+def route_flips(torch, card: list, cpu: list, k: int, steps: int) -> dict:
+    """Top-k choices that differ between the card's and the CPU's router
+    gates: ``card`` and ``cpu`` hold the (1, S, E) gates of each router
+    call of ``steps`` forwards, the same number of calls each, on equal
+    inputs.  Returns per step the number of (layer, token) choices that
+    differ, the CPU's gaps between the k-th and (k+1)-th gate where they
+    do, and the CPU's smallest such gap."""
+    per = len(cpu) // steps
+    flips, flip_gaps, smallest = [0] * steps, [], float("inf")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        top = torch.topk(b[0], k + 1, dim=-1)
+        gap = top.values[:, k - 1] - top.values[:, k]
+        smallest = min(smallest, float(gap.min()))
+        mine = torch.topk(a[0], k, dim=-1).indices.sort(dim=-1).values
+        theirs = top.indices[:, :k].sort(dim=-1).values
+        differ = (mine != theirs).any(dim=-1)
+        flips[i // per] += int(differ.sum())
+        flip_gaps += gap[differ].tolist()
+    return {"flips": flips, "flip_gaps": flip_gaps, "smallest_gap": smallest}
+
+
 def phase_lm_parity(torch, smi: str, arch: str, kernel: str,
                     phase: str = "lm-parity", n_layers: int = 0,
                     prompt_len: int = PARITY_PROMPT, depth_cut: str = "") -> dict:
@@ -1579,9 +1700,17 @@ def phase_lm_parity(torch, smi: str, arch: str, kernel: str,
     gap at that step is under the tolerance (a near tie).  ``n_layers``
     cuts the depth (0: the published depth), for the reason ``depth_cut``
     states; a config with a frontend takes its ``n_prefix`` embeddings,
-    drawn in numpy from SEED, on the first positions of the prompt."""
+    drawn in numpy from SEED, on the first positions of the prompt.
+
+    An MoE config's routers are recorded on both sides (``route_flips``):
+    from the first step at which a (layer, token) top-k choice differs, the
+    two models compute different functions, so logits are held to the
+    tolerance only before it and a later token mismatch is reported as
+    ``after-flip``; more than ROUTE_FLIPS_MAX flips at CPU gaps above
+    ROUTE_FLIP_MARGIN fail."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False     # full f32 products, stated
     torch.backends.cudnn.allow_tf32 = False
@@ -1596,23 +1725,41 @@ def phase_lm_parity(torch, smi: str, arch: str, kernel: str,
     if cfg.frontend is not None:
         embeds = torch.from_numpy(np.random.default_rng([SEED, 6]).standard_normal(
             (1, cfg.n_prefix, cfg.d_model), dtype=np.float32))
-    before = launches(kernel)
-    with torch.inference_mode():
-        gpu_toks, gpu_logits = _greedy_with_logits(
-            torch, M, params[DEVICE], cfg, torch.from_numpy(prompt).to(DEVICE), PARITY_NEW,
-            None if embeds is None else embeds.to(DEVICE))
-        kernel_launches = launches(kernel) - before
-        cpu_toks, cpu_logits = _greedy_with_logits(
-            torch, M, params["cpu"], cfg, torch.from_numpy(prompt), PARITY_NEW, embeds)
+    route, gates = moe_mod._route, {DEVICE: [], "cpu": []}
+    moe_mod._route = lambda cfg_, x, router, cap: _recorded(
+        route(cfg_, x, router, cap), gates[x.device.type])
+    try:
+        before = launches(kernel)
+        with torch.inference_mode():
+            gpu_toks, gpu_logits = _greedy_with_logits(
+                torch, M, params[DEVICE], cfg, torch.from_numpy(prompt).to(DEVICE),
+                PARITY_NEW, None if embeds is None else embeds.to(DEVICE))
+            kernel_launches = launches(kernel) - before
+            cpu_toks, cpu_logits = _greedy_with_logits(
+                torch, M, params["cpu"], cfg, torch.from_numpy(prompt), PARITY_NEW, embeds)
+    finally:
+        moe_mod._route = route
     gpu_toks, cpu_toks = gpu_toks[0].tolist(), cpu_toks[0].tolist()
+    # steps 0..m see equal inputs, m the first step whose tokens differ
+    compared = next((i + 1 for i, (a, b) in enumerate(zip(gpu_toks, cpu_toks)) if a != b),
+                    PARITY_NEW)
+    routing = None
+    first_flip = PARITY_NEW
+    if gates["cpu"]:
+        per = len(gates["cpu"]) // PARITY_NEW
+        routing = route_flips(torch, gates[DEVICE][:compared * per],
+                              gates["cpu"][:compared * per], cfg.experts_per_token, compared)
+        first_flip = next((i for i, n in enumerate(routing["flips"]) if n), PARITY_NEW)
     diffs, gaps, verdict = [], [], "equal"
     for i, (a, b) in enumerate(zip(gpu_toks, cpu_toks)):
         top2 = torch.topk(cpu_logits[i][0], 2).values
         gaps.append(float(top2[0] - top2[1]))
         diffs.append(float((gpu_logits[i] - cpu_logits[i]).abs().max()))
         if a != b:          # later steps see different tokens: stop comparing
-            verdict = "near-tie" if gaps[i] < LM_PARITY_TOL else "mismatch"
+            verdict = ("after-flip" if first_flip <= i else
+                       "near-tie" if gaps[i] < LM_PARITY_TOL else "mismatch")
             break
+    held = diffs[:first_flip]
     out = {"phase": phase, "arch": arch, "dtype": "float32",
            "params": sum(t.numel() for t in params["cpu"].parameters()),
            "layers": cfg.n_layers, "published_layers": published.n_layers,
@@ -1621,15 +1768,31 @@ def phase_lm_parity(torch, smi: str, arch: str, kernel: str,
            "prompt": prompt_len, "new_tokens": PARITY_NEW, "tolerance": LM_PARITY_TOL,
            "prefill_logits_max_abs_diff": diffs[0], "step_logits_max_abs_diff": diffs,
            "cpu_top2_gaps": gaps, "tokens_card": gpu_toks, "tokens_cpu": cpu_toks,
-           "tokens": verdict, "launches": {kernel: kernel_launches}, "card": smi}
-    out["ok"] = (diffs[0] <= LM_PARITY_TOL and verdict != "mismatch"
-                 and kernel_launches == cfg.n_layers and max(diffs) <= LM_PARITY_TOL)
+           "tokens": verdict, "launches": {kernel: kernel_launches},
+           "logits_held_steps": len(held), "card": smi}
+    suspicious = 0
+    if routing is not None:
+        suspicious = sum(g > ROUTE_FLIP_MARGIN for g in routing["flip_gaps"])
+        out["routing"] = {"top_k": cfg.experts_per_token, "experts": cfg.n_experts,
+                          "steps_compared": compared, "flips_per_step": routing["flips"],
+                          "flip_cpu_gaps": routing["flip_gaps"],
+                          "smallest_cpu_gap": routing["smallest_gap"],
+                          "flips_above_margin": suspicious, "margin": ROUTE_FLIP_MARGIN}
+    out["ok"] = (verdict != "mismatch" and kernel_launches == kernel_layers(cfg, kernel)
+                 and all(d <= LM_PARITY_TOL for d in held)
+                 and suspicious <= ROUTE_FLIPS_MAX)
     emit(out)
     del params
     torch.cuda.empty_cache()
     if not out["ok"]:
         raise AssertionError(f"{phase}: the model on the card and on the CPU disagree")
     return out
+
+
+def _recorded(routed, calls: list):
+    """``routed`` (``_route``'s result), its full gates kept on the host."""
+    calls.append(routed[3].float().cpu())
+    return routed
 
 
 def phase_serve(torch, smi: str, params, arch: str, kernel: str,
@@ -1674,9 +1837,9 @@ def phase_serve(torch, smi: str, params, arch: str, kernel: str,
         problems.append(f"answered {res.processed}/{requests}")
     if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
         problems.append("tokens missing or outside the vocabulary")
-    if n_launches < cfg.n_layers * n_batches:
-        problems.append(f"{kernel} launched {n_launches} < {cfg.n_layers} x {n_batches} "
-                        f"times")
+    if n_launches < kernel_layers(cfg, kernel) * n_batches:
+        problems.append(f"{kernel} launched {n_launches} < {kernel_layers(cfg, kernel)} x "
+                        f"{n_batches} times")
     if problems:
         raise AssertionError(f"{phase}: {problems}")
     return out
@@ -1721,9 +1884,12 @@ def phase_arch_configs(torch, smi: str, k3: dict | None) -> dict:
     ``n_prefix`` positions take embeddings drawn in numpy from SEED), then
     ARCH_NEW greedy tokens.  Finite logits, tokens inside the vocabulary,
     K3 launched once a layer by the prefill, and K3 held against
-    ``mha_ref`` at that prefill's shape by the kernel-K3 phase (``k3``)."""
+    ``mha_ref`` at that prefill's shape by the kernel-K3 phase (``k3``).
+    An MoE config's row also gives its experts, top-k and the capacity of
+    its prefill."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
+    from repro_torch.models.moe import moe_capacity
 
     rows, problems = {}, []
     for arch in ARCH_CONFIGS:
@@ -1770,9 +1936,14 @@ def phase_arch_configs(torch, smi: str, k3: dict | None) -> dict:
                "k3_shape": list(fa_prefill_shape(cfg)),
                "k3_max_abs_err": None if k3_row is None else k3_row["max_abs_err"],
                "k3_against_plain": k3_ok, "card": smi}
+        if cfg.n_experts:
+            row["moe"] = {"experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+                          "d_ff_expert": cfg.d_ff,
+                          "capacity": moe_capacity(cfg, SERVE_PROMPT)}
         emit(row)
         rows[arch] = row
-        if not (finite and in_vocab and k3_ok and n_launches == cfg.n_layers
+        if not (finite and in_vocab and k3_ok
+                and n_launches == kernel_layers(cfg, "flash_attention")
                 and tuple(toks.shape) == (SERVE_BATCH, ARCH_NEW)):
             problems.append(arch)
         del params, caches, logits, embeds
@@ -1791,14 +1962,71 @@ def serve_params(torch, arch: str):
                          torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
 
 
+def model_spans(cfg) -> dict:
+    """The plain-torch stages of ``cfg``'s layers that a profile times as
+    spans: the RG-LRU scan, and the MoE layer's routing, dispatch, expert
+    GEMMs and combine."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import rglru as rglru_mod
+
+    named = {}
+    if "rglru" in cfg.layer_kinds:
+        named["rglru.scan"] = (rglru_mod, "_scan")
+    if "moe" in cfg.layer_kinds:
+        named.update({"moe.route": (moe_mod, "_route"), "moe.dispatch": (moe_mod, "_dispatch"),
+                      "moe.expert_ffn": (moe_mod, "_expert_ffn"),
+                      "moe.combine": (moe_mod, "_combine")})
+    return named
+
+
+def gemm_device_ms(rows: list[dict]) -> float:
+    """Summed device time of the matrix-product kernels among ``rows``."""
+    return sum(r["device_ms"] for r in rows
+               if re.search(r"gemm|gemv|nvjet|xmma|cutlass", r["name"], re.I))
+
+
+def micro_batch_spans(torch, params, arch: str, kernel: str, named: dict) -> dict:
+    """One micro-batch (SERVE_BATCH prompts of SERVE_PROMPT tokens, prefill
+    and SERVE_NEW greedy tokens) in this thread under ``torch.profiler``,
+    the model's stages ``named`` as spans: each span's device ms beside
+    the run's summed device ms, ``kernel``'s and the GEMMs'.  The serve's
+    consumer threads give no spans (the profiler records host-side ranges
+    only on the thread that runs it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    prompts = torch.from_numpy(np.random.default_rng([SEED, 5]).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(DEVICE)
+    with torch.inference_mode():
+        M.greedy_generate(params, cfg, prompts, 2)              # warm-up
+        torch.cuda.synchronize()
+        with spans(torch, named), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            M.greedy_generate(params, cfg, prompts, SERVE_NEW)
+            torch.cuda.synchronize()
+    rows = device_time_rows(prof)
+    return {"batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+            "device_ms": sum(r["device_ms"] for r in rows) if rows else "not measured",
+            f"{kernel}_device_ms": kernel_device_ms(rows, kernel) if rows else "not measured",
+            "matmul_device_ms": gemm_device_ms(rows) if rows else "not measured",
+            "spans": span_device_ms(prof, named)}
+
+
 def phase_serve_profile(torch, smi: str, params, arch: str, kernel: str,
                         phase: str = "serve-profile",
                         serve_phase: str = "profiled-serve") -> dict:
     """Where the time of the serving path goes: a shorter serve run under
     ``torch.profiler``; device time by kernel (``kernel``'s and the matrix
     products' summed), host self time by op, and the busy share = summed
-    device self time over the run's wall time."""
+    device self time over the run's wall time; for a config with
+    plain-torch stages worth naming (``model_spans``), their device time in
+    one micro-batch (``micro_batch_spans``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run = phase_serve(torch, smi, params, arch, kernel, PROFILE_REQUESTS, PROFILE_NEW,
@@ -1806,8 +2034,7 @@ def phase_serve_profile(torch, smi: str, params, arch: str, kernel: str,
     rows = device_time_rows(prof)
     device_ms = sum(r["device_ms"] for r in rows)
     kernel_ms = kernel_device_ms(rows, kernel)
-    gemm_ms = sum(r["device_ms"] for r in rows
-                  if re.search(r"gemm|gemv|nvjet|xmma|cutlass", r["name"], re.I))
+    gemm_ms = gemm_device_ms(rows)
     host = sorted(prof.key_averages(), key=lambda ev: -ev.self_cpu_time_total)
     wall_ms = run["wall_s"] * 1e3
     measured = bool(rows)
@@ -1821,6 +2048,9 @@ def phase_serve_profile(torch, smi: str, params, arch: str, kernel: str,
            "top_host": [{"name": ev.key[:96], "calls": ev.count,
                          "host_self_ms": ev.self_cpu_time_total / 1e3} for ev in host[:12]],
            "card": smi}
+    named = model_spans(get_config(arch))
+    if named:
+        out["micro_batch"] = micro_batch_spans(torch, params, arch, kernel, named)
     emit(out)
     return out
 
@@ -1900,6 +2130,13 @@ def main() -> int:
     run("lm-parity-musicgen", phase_lm_parity, torch, smi, MUSICGEN_ARCH, "flash_attention",
         "lm-parity-musicgen", 0, MUSICGEN_PROMPT)
     serving["flash_attention_14b"] = serving_path(LARGE_ARCH, "flash_attention", "-14b")
+    run("lm-parity-recurrentgemma", phase_lm_parity, torch, smi, HYBRID_ARCH,
+        "flash_attention", "lm-parity-recurrentgemma")
+    serving["flash_attention_recurrentgemma"] = serving_path(HYBRID_ARCH, "flash_attention",
+                                                             "-recurrentgemma")
+    run("lm-parity-granite", phase_lm_parity, torch, smi, MOE_ARCH, "flash_attention",
+        "lm-parity-granite")
+    serving["flash_attention_granite"] = serving_path(MOE_ARCH, "flash_attention", "-granite")
     k4 = run("kernel-K4", phase_kernel_k4, torch, smi)
     run("lm-parity-mamba", phase_lm_parity, torch, smi, SSM_ARCH, "ssd_scan",
         "lm-parity-mamba")
@@ -1924,7 +2161,8 @@ def main() -> int:
             "launches_kernel_phase": kernels["launches"][name],
             "launches_sim_kmeans": [cell["launches"][name] for cell in sim_kmeans],
             "share_of_bound": row["share_of_bound"], "device_ms": row["device_ms"]})
-    row, big = k3[FA_SERVING + ("bfloat16",)], k3[FA_SERVING_14B + ("bfloat16",)]
+    row, big = k3[FA_SERVING + (0, "bfloat16")], k3[FA_SERVING_14B + (0, "bfloat16")]
+    rg, rg_window = k3[FA_SERVING_RG + ("bfloat16",)], k3[FA_WINDOWED[0]]
     summary.append({
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
         "replaces": FA_REPLACES, "launches": serving["flash_attention"]["launches"][
@@ -1939,7 +2177,20 @@ def main() -> int:
         "plain_ms_dh128": big["plain_ms"], "bound_ms_dh128": big["bound_ms"],
         "bound_by_dh128": big["bound_by"], "library_ms_dh128": big["library_ms"],
         "shape_dh128": dict(zip(("bh", "bkv", "s", "dh"), FA_SERVING_14B),
-                            dtype="bfloat16")})
+                            dtype="bfloat16"),
+        # RecurrentGemma-2B's prefill (Dh 256, window 2,048) and its window at S 4,096
+        "launches_serve_recurrentgemma": serving["flash_attention_recurrentgemma"][
+            "launches"]["flash_attention"],
+        "launches_serve_granite": serving["flash_attention_granite"]["launches"][
+            "flash_attention"],
+        **{f"{key}_dh256": rg[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")},
+        "shape_dh256": dict(zip(("bh", "bkv", "s", "dh", "window"), FA_SERVING_RG),
+                            dtype="bfloat16"),
+        **{f"{key}_window": rg_window[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                       "bound_ms", "bound_by", "library_ms")},
+        "shape_window": dict(zip(("bh", "bkv", "s", "dh", "window"), FA_WINDOWED[0][:5]),
+                             dtype="bfloat16")})
     row = k4[(SSD_SERVING, False)]
     summary.append({
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,

@@ -9,11 +9,13 @@ both packages) with its helpers (``is_attention_free``,
 architecture has an exact published ``ModelConfig`` plus a ``reduced()``
 variant for CPU tests.
 
-Only the configurations the port can run are loaded (``_ensure_loaded``):
+Every configuration the reference registers is loaded (``_ensure_loaded``):
 the dense ``qwen2-0.5b``, ``qwen2.5-3b``, ``qwen2.5-14b`` and ``glm4-9b``,
-the frontend ``internvl2-1b`` and ``musicgen-medium``, and the SSM
-``mamba2-130m``.  The mesh-padding fields and ``pad_for_mesh`` come with
-the multi-device slice.
+the frontend ``internvl2-1b`` and ``musicgen-medium``, the SSM
+``mamba2-130m``, the hybrid ``recurrentgemma-2b`` and the MoE
+``granite-moe-3b-a800m`` and ``qwen3-moe-235b-a22b``.  The mesh-padding
+fields (``experts_p`` and the rest) and ``pad_for_mesh`` come with the
+multi-device slice; on one device ``experts_p`` is ``n_experts``.
 """
 
 from __future__ import annotations
@@ -187,6 +189,7 @@ def list_configs() -> list[str]:
 def _ensure_loaded() -> None:
     # always import (a cached import is a dict lookup): a registry that is
     # merely non-empty may hold only a config module imported on its own
-    from repro_torch.configs import (glm4_9b, internvl2_1b, mamba2_130m,  # noqa: F401
-                                     musicgen_medium, qwen2_0_5b, qwen2_5_14b,
-                                     qwen2_5_3b)
+    from repro_torch.configs import (glm4_9b, granite_moe_3b_a800m,  # noqa: F401
+                                     internvl2_1b, mamba2_130m, musicgen_medium,
+                                     qwen2_0_5b, qwen2_5_14b, qwen2_5_3b,
+                                     qwen3_moe_235b_a22b, recurrentgemma_2b)

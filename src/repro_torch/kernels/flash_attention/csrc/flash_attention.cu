@@ -8,8 +8,20 @@
 //    softmax with f32 running max m, sum l and accumulator acc; masked
 //    scores are -1e30, fully masked kv tiles are skipped, and the output is
 //    acc / max(l, 1e-30), as in the TPU kernel.  The scale is 1/sqrt(Dh);
-//    any Dh <= 128 and any S are taken as they are (nothing is padded in
+//    any Dh <= 256 and any S are taken as they are (nothing is padded in
 //    device memory; a ragged S is masked in the kernel).
+//
+// Local attention (window > 0, which the TPU kernel lacks and the reference
+// model computes in attend_full / attend_chunked): query qpos sees key kpos
+// iff qpos - window < kpos <= qpos.  The kv loop starts at the first tile
+// that the window of the tile's first query reaches, as the causal skip ends
+// it at the diagonal, and only the tiles that the window's edge or the
+// diagonal cut are masked.  A row whose keys in a tile are all masked (an
+// early tile, before its window) keeps m = -1e30 there, and its exponents
+// are then taken against 0 instead of m, so every p of the tile is 0: the
+// bf16 kernel's exp2(s log2 e - m log2 e) would otherwise read the rounding
+// error of -1e30 log2 e, ~1e22, and overflow.  Every row < S sees its own
+// key, so a later tile sets m.
 //
 // Bound on an H100 SXM: operations.  The causal function needs about
 // 2 * BH * S^2 * Dh FLOPs (QK^T and PV, half of each under the mask); at the
@@ -52,14 +64,24 @@
 //    tile's shared memory so that the stores are 16-byte and coalesced;
 //    rows >= S and columns >= Dh are not stored.
 //  Shared memory: 5 tiles of 64 x (DP + 8) bf16 (q, and k and v twice),
-//  46,080 B at Dh = 64 and 87,040 B at Dh = 128.  Registers per thread:
-//  q fragments DP / 4, scores 32, accumulator DP / 2 f32 (64 at
-//  Dh = 128); the -Xptxas -v report reads 134 at Dh = 64 and 169 at
-//  Dh = 128 with no spills, so registers hold an SM to 3 blocks (12
+//  46,080 B at Dh = 64, 87,040 B at Dh = 128 and 168,960 B at Dh = 256.
+//  Registers per thread: q fragments DP / 4, scores 32, accumulator DP / 2
+//  f32 (64 at Dh = 128); the -Xptxas -v report reads 134 at Dh = 64 and
+//  169 at Dh = 128 with no spills, so registers hold an SM to 3 blocks (12
 //  warps).  Capping them at 128 for a fourth block spills and runs no
-//  faster.  The tensor-core rate at this tile is far from the card's peak:
-//  wgmma with TMA, warp specialisation and a persistent grid are the later
-//  levers.
+//  faster.  Above Dh = 128 (DP 192 or 256; Dh 129..256 round up to these
+//  two) the accumulator alone is up to 128 f32 a thread, so the q fragments
+//  stay in shared memory and are read with ldmatrix for each kv tile
+//  instead of living in registers (QREG false); shared memory then allows
+//  one block an SM.  The -Xptxas -v report reads 173 registers at DK 12
+//  with no spill, and 255 at DK 16 with 80 B of spill stores and 52 B of
+//  loads a thread (the accumulator's 128 and the scores' 32 floats); at
+//  RecurrentGemma-2B's prefill shape it still runs at the share of its
+//  bound that Dh 64 and 128 reach (chip_smoke.py's kernel-K3 rows).
+//  Halving the scores (two 32-key halves a tile) would free the spilled
+//  registers.  The tensor-core rate at this tile is far from the card's
+//  peak: wgmma with TMA, warp specialisation and a persistent grid are the
+//  later levers.
 //
 // f32: flash_attention_kernel, on the CUDA cores in f32.  Its check
 // against mha_ref (2e-5) is beyond TF32, so it stays off the tensor
@@ -70,8 +92,10 @@
 // accumulator; m, l and acc in registers, the row max and sum combined with
 // shuffles, the probabilities passed through a shared tile to the PV
 // product.  Shared memory: (64 + 2 * 64) * (Dh + 1) + 64 * 65 floats,
-// 66,560 B at Dh = 64 and 115,712 B at Dh = 128; the +1 row pad keeps the
-// column-wise reads free of bank conflicts.
+// 66,560 B at Dh = 64, 115,712 B at Dh = 128 and 214,016 B at Dh = 256
+// (under the 232,448 B opt-in limit); the +1 row pad keeps the column-wise
+// reads free of bank conflicts.  Above Dh = 128 each thread holds 16
+// columns of the accumulator (DN 16), 64 f32; 128 registers, no spill.
 //
 // C interface (loaded with ctypes): fa_forward launches on the given stream
 // of the given device, leaves the caller's current device as it found it,
@@ -99,6 +123,12 @@ constexpr int TN = TK / TX;           // keys per thread (4)
 constexpr int THREADS = TX * TY;      // 256
 constexpr int PLD = TK + 1;           // row stride of the probability tile
 
+// The first kv tile that a query tile starting at row q0 sees: 0 without a
+// window, else the tile of key q0 - window + 1.
+__device__ __forceinline__ int first_tile(int q0, int window) {
+  return window > 0 ? max(0, q0 - window + 1) / TK : 0;
+}
+
 // Stage `rows` (<= 64) rows of a contiguous (rows, dh) slab into
 // tile[64][ld] times `mul`, zero-filling rows past the slab.  Consecutive
 // threads read consecutive elements, so the loads coalesce.
@@ -115,7 +145,7 @@ template <int DN>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int S,
-                       int dh, int group, float scale) {
+                       int dh, int group, float scale, int window) {
   extern __shared__ float smem[];
   const int ld = dh + 1;
   float* qs = smem;                   // [BQ][ld], q * scale
@@ -140,8 +170,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
   }
 
-  // kv tiles past the diagonal are fully masked for every row: skipped
-  for (int t = 0; t <= qt; ++t) {
+  // kv tiles past the diagonal, and before the window of the tile's first
+  // row, are fully masked for every row: skipped
+  for (int t = first_tile(q0, window); t <= qt; ++t) {
     const int k0 = t * TK;
     stage(ks, kb + (size_t)k0 * dh, S - k0, dh, ld, 1.f);
     stage(vs, vb + (size_t)k0 * dh, S - k0, dh, ld, 1.f);
@@ -171,7 +202,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int key = k0 + tx + TX * j;
-        if (key > row || key >= S) s[i][j] = NEG_INF;
+        if (key > row || key >= S || (window > 0 && key + window <= row))
+          s[i][j] = NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -179,10 +211,11 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
+      const float m_exp = m_new == NEG_INF ? 0.f : m_new;   // all masked: p = 0
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = expf(s[i][j] - m_exp);
         sum += p;
         ps[(ty + TY * i) * PLD + tx + TX * j] = p;
       }
@@ -313,8 +346,9 @@ template <int DK>   // DP = 16 DK: Dh zero-filled up to a multiple of 16
 __global__ void __launch_bounds__(TC_THREADS)
 flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ out,
-                            int S, int dh, int group, float scale, bool vec) {
+                            int S, int dh, int group, float scale, int window, bool vec) {
   constexpr int DP = 16 * DK, LD = DP + 8, TILE = BQ * LD;
+  constexpr bool QREG = DK <= 8;      // q fragments in registers, else read per tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]; the output tile last
   bf16* kvs = qs + TILE;                         // two stages of k [TK][LD], v [TK][LD]
@@ -325,18 +359,21 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const int g = lane >> 2, tq = lane & 3;        // accumulator row and column pair
   const bf16* kb = k + (size_t)(bh / group) * S * dh;
   const bf16* vb = v + (size_t)(bh / group) * S * dh;
+  const int t0 = first_tile(q0, window);
+  const bf16* qrow = qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
 
   stage_bf16<DP>(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, vec);
-  stage_bf16<DP>(kvs, kb, S, dh, vec);
-  stage_bf16<DP>(kvs + TILE, vb, S, dh, vec);
+  stage_bf16<DP>(kvs, kb + (size_t)t0 * TK * dh, S - t0 * TK, dh, vec);
+  stage_bf16<DP>(kvs + TILE, vb + (size_t)t0 * TK * dh, S - t0 * TK, dh, vec);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  unsigned qf[DK][4];                 // this warp's 16 q rows, A fragments
+  unsigned qf[QREG ? DK : 1][4];      // this warp's 16 q rows, A fragments
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < DK; ++kk)
-    ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < DK; ++kk) ldmatrix_x4(qf[kk], qrow + kk * 16);
+  }
 
   float o[2 * DK][4];                 // rows g, g + 8; columns 8 n + 2 tq + {0, 1}
 #pragma unroll
@@ -345,12 +382,13 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // l: this lane's part
 
-  // kv tiles past the diagonal are fully masked for every row: skipped
-  for (int t = 0; t <= qt; ++t) {
-    const bf16* ks = kvs + (t & 1) * 2 * TILE;
+  // kv tiles past the diagonal, and before the window of the tile's first
+  // row, are fully masked for every row: skipped
+  for (int t = t0; t <= qt; ++t) {
+    const bf16* ks = kvs + ((t - t0) & 1) * 2 * TILE;
     const bf16* vs = ks + TILE;
     if (t < qt) {                     // tile t + 1 lands while tile t computes
-      bf16* nk = kvs + ((t + 1) & 1) * 2 * TILE;
+      bf16* nk = kvs + ((t + 1 - t0) & 1) * 2 * TILE;
       const int k1 = (t + 1) * TK;
       stage_bf16<DP>(nk, kb + (size_t)k1 * dh, S - k1, dh, vec);
       stage_bf16<DP>(nk + TILE, vb + (size_t)k1 * dh, S - k1, dh, vec);
@@ -363,18 +401,28 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk)
+    for (int kk = 0; kk < DK; ++kk) {
+      unsigned a[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(a, qrow + kk * 16);
+      }
 #pragma unroll
       for (int np = 0; np < TK / 16; ++np) {
         unsigned b[4];                // keys 16 np + [0, 8) and [8, 16)
         ldmatrix_x4(b, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
                            ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+        mma_bf16(s[2 * np], a, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
       }
+    }
 
-    const bool diag = t == qt;
     const int k0 = t * TK;
+    // the diagonal tile, and a tile that the window's edge cuts for the
+    // tile's last row, are masked; every other tile is visible to every row
+    const bool edge = t == qt || (window > 0 && k0 + window <= q0 + BQ - 1);
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int n = 0; n < TK / 8; ++n)
@@ -383,7 +431,8 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
         const int row = q0 + warp * 16 + g + (e >> 1) * 8;
         const int key = k0 + n * 8 + tq * 2 + (e & 1);
         float x = s[n][e] * scale;
-        if (diag && (key > row || key >= S)) x = NEG_INF;
+        if (edge && (key > row || key >= S || (window > 0 && key + window <= row)))
+          x = NEG_INF;
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -395,7 +444,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
       const float m_new = fmaxf(m[r], mx[r]);
       const float alpha = exp2f((m[r] - m_new) * LOG2E);
       m[r] = m_new;
-      ml[r] = m_new * LOG2E;
+      ml[r] = m_new == NEG_INF ? 0.f : m_new * LOG2E;   // all masked: p = 0
       l[r] *= alpha;
 #pragma unroll
       for (int n = 0; n < 2 * DK; ++n) {
@@ -471,16 +520,22 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
 // -- launch ------------------------------------------------------------------
 
+// The bf16 kernel's DK (Dh zero-filled to 16 DK): each multiple of 16 up to
+// 128, then 12 (Dh 129..192) and 16 (Dh 193..256).
+int bf16_dk(int dh) {
+  const int dk = (dh + 15) / 16;
+  return dk <= 8 ? dk : dk <= 12 ? 12 : 16;
+}
+
 size_t smem_bytes(int dh, int dtype) {
   if (dtype == 0)
     return ((size_t)(BQ + 2 * TK) * (dh + 1) + (size_t)BQ * PLD) * sizeof(float);
-  const int dp = (dh + 15) / 16 * 16;
-  return (size_t)(BQ + 4 * TK) * (dp + 8) * sizeof(bf16);
+  return (size_t)(BQ + 4 * TK) * (16 * bf16_dk(dh) + 8) * sizeof(bf16);
 }
 
 template <int DN>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       int bh, int bkv, int S, int dh, cudaStream_t stream) {
+                       int bh, int bkv, int S, int dh, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(dh, 0);
   auto kernel = flash_attention_kernel<DN>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -490,22 +545,23 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, dh, bh / bkv,
-      1.0f / sqrtf((float)dh));
+      1.0f / sqrtf((float)dh), window);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out,
-                         int bh, int bkv, int S, int dh, cudaStream_t stream) {
-  if (dh <= 32) return launch_f32<2>(q, k, v, out, bh, bkv, S, dh, stream);
-  if (dh <= 64) return launch_f32<4>(q, k, v, out, bh, bkv, S, dh, stream);
-  return launch_f32<8>(q, k, v, out, bh, bkv, S, dh, stream);
+                         int bh, int bkv, int S, int dh, int window, cudaStream_t stream) {
+  if (dh <= 32) return launch_f32<2>(q, k, v, out, bh, bkv, S, dh, window, stream);
+  if (dh <= 64) return launch_f32<4>(q, k, v, out, bh, bkv, S, dh, window, stream);
+  if (dh <= 128) return launch_f32<8>(q, k, v, out, bh, bkv, S, dh, window, stream);
+  return launch_f32<16>(q, k, v, out, bh, bkv, S, dh, window, stream);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <int DK>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
-                        int bh, int bkv, int S, int dh, cudaStream_t stream) {
+                        int bh, int bkv, int S, int dh, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(dh, 1);
   auto kernel = flash_attention_bf16_kernel<DK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -517,22 +573,26 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), S, dh, bh / bkv,
-      1.0f / sqrtf((float)dh), vec);
+      1.0f / sqrtf((float)dh), window, vec);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* out,
-                          int bh, int bkv, int S, int dh, cudaStream_t stream) {
-  switch ((dh + 15) / 16) {
-    case 1: return launch_bf16<1>(q, k, v, out, bh, bkv, S, dh, stream);
-    case 2: return launch_bf16<2>(q, k, v, out, bh, bkv, S, dh, stream);
-    case 3: return launch_bf16<3>(q, k, v, out, bh, bkv, S, dh, stream);
-    case 4: return launch_bf16<4>(q, k, v, out, bh, bkv, S, dh, stream);
-    case 5: return launch_bf16<5>(q, k, v, out, bh, bkv, S, dh, stream);
-    case 6: return launch_bf16<6>(q, k, v, out, bh, bkv, S, dh, stream);
-    case 7: return launch_bf16<7>(q, k, v, out, bh, bkv, S, dh, stream);
-    default: return launch_bf16<8>(q, k, v, out, bh, bkv, S, dh, stream);
+                          int bh, int bkv, int S, int dh, int window, cudaStream_t stream) {
+#define FA_BF16(DK) launch_bf16<DK>(q, k, v, out, bh, bkv, S, dh, window, stream)
+  switch (bf16_dk(dh)) {
+    case 1: return FA_BF16(1);
+    case 2: return FA_BF16(2);
+    case 3: return FA_BF16(3);
+    case 4: return FA_BF16(4);
+    case 5: return FA_BF16(5);
+    case 6: return FA_BF16(6);
+    case 7: return FA_BF16(7);
+    case 8: return FA_BF16(8);
+    case 12: return FA_BF16(12);
+    default: return FA_BF16(16);
   }
+#undef FA_BF16
 }
 
 // Makes `device` current for one launch and gives the caller's device back.
@@ -564,18 +624,20 @@ int fa_smem_bytes(int dh, int dtype) {
 }
 
 // q (bh, S, dh); k, v (bkv, S, dh); out (bh, S, dh); all contiguous, one
-// dtype (0 = float32, 1 = bfloat16); bh % bkv == 0, 0 < dh <= 128; grid.y
-// (bh for float32, the 64-query tiles for bfloat16) at most 65535.
+// dtype (0 = float32, 1 = bfloat16); bh % bkv == 0, 0 < dh <= 256; grid.y
+// (bh for float32, the 64-query tiles for bfloat16) at most 65535; window
+// 0 (causal) or the local window (>= 1).
 int fa_forward(const void* q, const void* k, const void* v, void* out, int bh,
-               int bkv, int S, int dh, int dtype, int device, void* stream) {
-  if (bh <= 0 || bkv <= 0 || bh % bkv || S <= 0 || dh <= 0 || dh > 128)
+               int bkv, int S, int dh, int window, int dtype, int device,
+               void* stream) {
+  if (bh <= 0 || bkv <= 0 || bh % bkv || S <= 0 || dh <= 0 || dh > 256 || window < 0)
     return cudaErrorInvalidValue;
   if ((dtype == 0 ? bh : (S + BQ - 1) / BQ) > 65535) return cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_f32(q, k, v, out, bh, bkv, S, dh, s);
-  if (dtype == 1) return dispatch_bf16(q, k, v, out, bh, bkv, S, dh, s);
+  if (dtype == 0) return dispatch_f32(q, k, v, out, bh, bkv, S, dh, window, s);
+  if (dtype == 1) return dispatch_bf16(q, k, v, out, bh, bkv, S, dh, window, s);
   return cudaErrorInvalidValue;
 }
 

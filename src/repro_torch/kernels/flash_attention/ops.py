@@ -6,8 +6,10 @@ launch the hand-written kernel in ``csrc/flash_attention.cu`` on the
 current stream, or raise.  There is no fallback from one to the other.
 
 The reference pads Dh to the TPU's 128 lanes (with a q prescale) and S to
-its block size; the kernel takes any Dh <= 128 with scale 1/sqrt(Dh) and
-masks a ragged S itself, so nothing is padded here.  ``LAUNCHES`` counts
+its block size; the kernel takes any Dh <= 256 with scale 1/sqrt(Dh) and
+masks a ragged S itself, so nothing is padded here.  ``window`` > 0 is
+local attention (the reference model's ``attend_full``/``attend_chunked``
+mask ``qpos - window < kpos <= qpos``), which the TPU kernel lacks.  ``LAUNCHES`` counts
 kernel launches, so a run can show that its main path went through the
 kernel; the serving path calls this wrapper from one thread per partition,
 and CPython's GIL keeps the single ``+=`` on a dict entry whole.
@@ -25,7 +27,7 @@ from repro_torch.kernels.flash_attention.ref import mha_ref
 __all__ = ["flash_attention", "smem_bytes", "LAUNCHES", "MAX_HEAD_DIM"]
 
 LAUNCHES = {"flash_attention": 0}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535             # CUDA's grid.y limit
@@ -38,7 +40,7 @@ def _kernels() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.library("flash_attention")
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.fa_forward.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, i, ptr]
+        lib.fa_forward.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i, i, i, ptr]
         lib.fa_forward.restype = ctypes.c_int
         lib.fa_smem_bytes.argtypes = [i, i]
         lib.fa_smem_bytes.restype = ctypes.c_int
@@ -46,11 +48,14 @@ def _kernels() -> ctypes.CDLL:
     return _lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int) -> None:
     if not causal:
         raise NotImplementedError("the flash-attention kernel computes causal "
                                   "attention only (as the reference's padded "
                                   "flash path does)")
+    if window < 0:
+        raise ValueError(f"window={window}: 0 (none) or a positive local window")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"expected q (BH, S, Dh) and k, v (BKV, S, Dh), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -73,15 +78,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """Causal GQA attention: q (BH, S, Dh); k, v (BKV, S, Dh), contiguous,
-    with BH = BKV·G; q row b reads kv row b // G.  Returns (BH, S, Dh) in q's
+    with BH = BKV·G; q row b reads kv row b // G; with ``window`` > 0 query
+    i sees keys i - window + 1 .. i only.  Returns (BH, S, Dh) in q's
     dtype.  On the card, f32 inputs are computed in f32 on the CUDA cores;
     bf16 inputs with f32 accumulation and bf16 tensor-core products, with P
     split hi/lo so that the PV product keeps ~16 bits of each probability."""
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, window)
     if q.device.type == "cpu":
-        return mha_ref(q, k, v, causal=True)
+        return mha_ref(q, k, v, causal=True, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {q.device}")
     bh, s, dh = q.shape
@@ -94,7 +100,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     err = _kernels().fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, k.shape[0],
-        s, dh, _DTYPE_CODES[q.dtype], q.device.index,
+        s, dh, window, _DTYPE_CODES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")

@@ -6,7 +6,10 @@ engine micro-batches up to ``batch_max`` of them per partition, and each
 micro-batch runs prefill plus greedy decode as a compute-unit on a
 ``torch://`` pilot.  On the card the prefill runs kernel K3 as its
 attention (the dense and frontend configs: ``qwen2-0.5b``, ``qwen2.5-3b``,
-``qwen2.5-14b``, ``glm4-9b``, ``internvl2-1b``, ``musicgen-medium``) or
+``qwen2.5-14b``, ``glm4-9b``, ``internvl2-1b``, ``musicgen-medium``; the
+MoE configs ``granite-moe-3b-a800m`` and ``qwen3-moe-235b-a22b``; and
+``recurrentgemma-2b``, whose local-attention layers run K3 at Dh 256 with
+its 2,048-token window, and whose RG-LRU layers scan in plain torch) or
 kernel K4 as its SSD scan (``mamba2-130m``).  Like the reference's serve,
 it passes no frontend ``embeds``: a request is its token ids.  The model is
 read-only and every micro-batch makes its own caches (K/V or SSM state), so
@@ -17,16 +20,23 @@ the consumer threads share it without a lock.
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --reduced --device cpu \\
         --prompt-len 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced \\
+        --device cpu                  # likewise granite-moe-3b-a800m, qwen3-moe-235b-a22b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --requests 32 \\
         --prompt-len 1024 --new-tokens 8 --batch-max 4       # full width, on the card
 
 A Mamba-2 prompt is at most the config's SSD chunk long or a multiple of it
-(the reference's contract).
+(the reference's contract).  ``main`` refuses a configuration whose weights
+outgrow the device's memory before it allocates them: Qwen3-235B-A22B at
+its published depth holds ~470 GB of bf16 weights, against 80 GB on one
+H100, so on one card it runs only cut in depth (``chip_smoke.py`` runs 2
+of its 94 layers at published width).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -41,7 +51,7 @@ from repro_torch.pilot.api import PilotComputeService, PilotDescription
 from repro_torch.streaming.broker import Broker
 from repro_torch.streaming.engine import ThreadedStreamingEngine, Workload
 
-__all__ = ["ServeResult", "serve", "main"]
+__all__ = ["ServeResult", "serve", "check_weights_fit", "main"]
 
 
 @dataclass
@@ -132,6 +142,27 @@ def serve(cfg, params, prompts: np.ndarray, *, new_tokens: int, partitions: int 
         lpx_s=list(metrics.latencies(run_id, "append", "complete")), batches=batches)
 
 
+def _memory_bytes(device: torch.device) -> int:
+    """The device's memory: the card's total, or the host's RAM for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def check_weights_fit(cfg, device: torch.device) -> None:
+    """Raise ``ValueError`` if ``cfg``'s weights alone (its parameter count
+    in ``cfg.dtype``) exceed the memory of ``device``."""
+    need = cfg.param_count() * torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    have = _memory_bytes(device)
+    if need > have:
+        where = "the card's" if device.type == "cuda" else "the host's"
+        raise ValueError(
+            f"{cfg.name} at {cfg.n_layers} layers holds {need / 1e9:.1f} GB of {cfg.dtype} "
+            f"weights ({cfg.param_count():,} parameters), more than {where} "
+            f"{have / 1e9:.1f} GB of memory on {device}; run it cut in depth or "
+            f"--reduced")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -147,6 +178,7 @@ def main(argv=None) -> None:
 
     cfg = get_config(args.arch, reduced=args.reduced)
     dev = resolve_device(args.device)
+    check_weights_fit(cfg, dev)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, size=(args.requests, args.prompt_len))

@@ -17,10 +17,11 @@ Execution paths sharing one set of weights:
 * ``decode_step`` — one token against the cache, in plain torch as in the
   reference (no kernel there either).
 
-Local attention (``window > 0``) is not in this slice: it raises
-``NotImplementedError`` (ROADMAP queue 1, the ``rglru``/``local_attn``
-slice).  Mesh-padding heads (the reference's ``_head_mask``) come with the
-multi-device slice.
+Local attention (``window > 0``, the ``local_attn`` block): query ``qpos``
+sees key ``kpos`` iff ``qpos - window < kpos <= qpos``, in K3 as in the
+plain versions, and the decode cache is a ring of ``min(window, max_seq)``
+slots in which position ``p`` lives at slot ``p % S``.  Mesh-padding heads
+(the reference's ``_head_mask``) come with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -36,14 +37,6 @@ __all__ = ["NEG_INF", "attention_init", "attend", "attend_full", "init_cache",
            "decode_step", "prefill_into_cache"]
 
 NEG_INF = -1e30
-_LOCAL = ("local attention (window > 0) is not ported yet: ROADMAP queue 1, "
-          "the rglru/local_attn slice")
-
-
-def _no_window(window: int) -> None:
-    if window:
-        raise NotImplementedError(_LOCAL)
-
 
 # ---------------------------------------------------------------------------
 # params
@@ -96,29 +89,30 @@ def _out_proj(p, ctx, x_dtype):
 
 def attend(p, cfg, x, positions, window: int = 0):
     """Causal attention of a prompt: x (B, S, d) at positions 0..S-1 (the
-    kernel masks by index; ``positions`` feed the rotary embedding).
-    Returns (out (B, S, d), (k, v) each (B, S, KV, Dh))."""
-    _no_window(window)
+    kernel masks by index; ``positions`` feed the rotary embedding), local
+    with ``window`` > 0.  Returns (out (B, S, d), (k, v) each (B, S, KV, Dh))."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x, positions)
     qr = q.transpose(1, 2).contiguous().view(B * H, S, Dh)            # row b*H + h
     kr = k.transpose(1, 2).contiguous().view(B * KV, S, Dh)           # row b*KV + h//G
     vr = v.transpose(1, 2).contiguous().view(B * KV, S, Dh)
-    ctx = flash_attention(qr, kr, vr).view(B, H, S, Dh).transpose(1, 2)
+    ctx = flash_attention(qr, kr, vr, window=window).view(B, H, S, Dh).transpose(1, 2)
     return _out_proj(p, ctx, x.dtype), (k, v)
 
 
 def attend_full(p, cfg, x, positions, window: int = 0):
     """Plain model-level version of ``attend``: (S, S) scores, masked by
     position, fp32 softmax."""
-    _no_window(window)
     q, k, v = _project_qkv(p, cfg, x, positions)
     kh = _repeat_kv(k, cfg).float()
     vh = _repeat_kv(v, cfg).float()
     scale = 1.0 / math.sqrt(cfg.head_dim)
     scores = torch.einsum("bqhk,bshk->bhqs", q.float() * scale, kh)
-    mask = positions[..., None, :] <= positions[..., :, None]         # kpos <= qpos
+    qpos, kpos = positions[..., :, None], positions[..., None, :]
+    mask = kpos <= qpos
+    if window:
+        mask = mask & (kpos > qpos - window)
     mask = mask[:, None] if mask.dim() == 3 else mask
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
@@ -132,27 +126,33 @@ def attend_full(p, cfg, x, positions, window: int = 0):
 
 def init_cache(cfg, batch, max_seq, window: int = 0, dtype=torch.bfloat16, *,
                device):
-    _no_window(window)
+    """K/V of ``max_seq`` slots, or a ring of ``min(window, max_seq)``."""
+    S = min(window, max_seq) if window else max_seq
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    return {"k": torch.zeros((batch, max_seq, kv, dh), dtype=dtype, device=device),
-            "v": torch.zeros((batch, max_seq, kv, dh), dtype=dtype, device=device)}
+    return {"k": torch.zeros((batch, S, kv, dh), dtype=dtype, device=device),
+            "v": torch.zeros((batch, S, kv, dh), dtype=dtype, device=device)}
 
 
 def decode_step(p, cfg, x, cache, pos: int, window: int = 0):
     """x (B, 1, d); ``pos`` the token's position (a Python int).  Writes
-    the token's K/V into ``cache`` IN PLACE at slot ``pos`` and attends
-    over slots 0..pos.  Returns (out (B, 1, d), cache)."""
-    _no_window(window)
+    the token's K/V into ``cache`` IN PLACE at slot ``pos`` (``pos % S`` in
+    a ring) and attends over the slots that hold a position.  Returns
+    (out (B, 1, d), cache)."""
     B = x.shape[0]
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-    # slots past pos hold no token yet; leaving them out equals the
-    # reference's -1e30 mask on them (their softmax weight is exactly 0)
-    k = cache["k"][:, :pos + 1].float()                               # (B, T, KV, Dh)
-    v = cache["v"][:, :pos + 1].float()
+    S = cache["k"].shape[1]
+    slot = pos % S if window else pos
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    # slots 0..pos hold positions 0..pos until a ring has wrapped, then
+    # every slot does (the reference's validity age <= min(pos, S - 1)).
+    # Slots holding no position are left out, which equals the reference's
+    # -1e30 mask on them (their softmax weight is exactly 0).
+    T = min(pos + 1, S)
+    k = cache["k"][:, :T].float()                                     # (B, T, KV, Dh)
+    v = cache["v"][:, :T].float()
     scale = 1.0 / math.sqrt(Dh)
     qg = (q.float() * scale).reshape(B, KV, H // KV, Dh)              # head h -> kv h // G
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
@@ -162,10 +162,16 @@ def decode_step(p, cfg, x, cache, pos: int, window: int = 0):
 
 
 def prefill_into_cache(p, cfg, x, positions, cache, window: int = 0):
-    """``attend`` a prompt AND write its K/V into slots 0..S-1 of the decode
-    cache, in place."""
+    """``attend`` a prompt AND write its K/V into the decode cache, in
+    place: into slots 0..S-1, or, for a ring no longer than the prompt, its
+    last ``S_cache`` positions, each at slot ``position % S_cache``."""
     out, (k, v) = attend(p, cfg, x, positions, window)
-    S = k.shape[1]
-    cache["k"][:, :S] = k.to(cache["k"].dtype)
-    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    S_new, S_cache = k.shape[1], cache["k"].shape[1]
+    if window and S_new >= S_cache:
+        roll = S_new % S_cache
+        cache["k"].copy_(torch.roll(k[:, S_new - S_cache:], roll, dims=1))
+        cache["v"].copy_(torch.roll(v[:, S_new - S_cache:], roll, dims=1))
+    else:
+        cache["k"][:, :S_new] = k.to(cache["k"].dtype)
+        cache["v"][:, :S_new] = v.to(cache["v"].dtype)
     return out, cache

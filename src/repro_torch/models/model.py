@@ -1,6 +1,7 @@
 """Language-model API for serving: init, forward, prefill, decode, generate.
 
-Ports ``repro.models.model`` for the dense and SSM families on one device.
+Ports ``repro.models.model`` for every family (dense, frontend, SSM,
+hybrid and MoE) on one device.
 The parameters are an ``nn.ModuleDict`` laid out as the reference's tree
 (``params["embedding"]["tokens"]``, ``params["final_norm"]["scale"]``),
 except that ``params["stack"]`` is an ``nn.ModuleList`` of per-layer
@@ -14,7 +15,7 @@ Modality frontends are stubs, as in the reference: ``forward`` and
 embeddings that replace the token embeddings of the first P <= S
 positions of a config with a ``frontend``.  Sinusoidal positions are added
 to the input embeddings in prefill and decode.  ``loss_fn`` and training
-are not in this slice (ROADMAP queue 1).
+are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -54,9 +55,9 @@ def params_from_numpy(cfg, tree, device="cuda") -> nn.ModuleDict:
     ``jax.tree.map(np.asarray, repro.models.model.init_params(key, cfg))``.
     ``stack.groups`` (leading ``n_groups`` axis) is unstacked into one block
     per layer, then the tail.  An array the tree holds in float32 stays
-    float32 (the SSM's ``A_log``, ``D`` and ``dt_bias`` in every model
-    dtype); the rest are cast to ``cfg.dtype`` (exact for a tree in that
-    dtype)."""
+    float32 (the SSM's ``A_log``, ``D`` and ``dt_bias``, the RG-LRU's
+    ``b_a``, ``b_i`` and ``lam``, and the MoE router, in every model dtype);
+    the rest are cast to ``cfg.dtype`` (exact for a tree in that dtype)."""
     dev = resolve_device(device)
     dtype = _dtype(cfg)
 

@@ -1,0 +1,160 @@
+"""Mixture-of-Experts layer: top-k routing + capacity-bounded dispatch.
+
+Ports ``repro.models.moe``'s one-device path.  Dispatch is index-based, as
+in the reference: an int slot table maps each (expert, position-in-expert)
+slot to the token it holds, token rows are gathered into per-expert
+capacity buffers (B, E, C, d), each expert runs its SwiGLU on its buffer,
+and each token sums its k weighted expert rows.  Capacity is per sequence,
+C = ceil(S·k·cf / E) (``moe_capacity``); a choice whose position in its
+expert reaches C is dropped and adds nothing, so its token passes through
+the residual untouched.
+
+Every step is deterministic on the card: positions are one cumsum of int
+one-hots, the inverse slot table is written by one ``scatter_`` whose
+indices are all distinct (dropped choices go to slots of their own past the
+table, which are then cut off), and the combine gathers each token's k rows
+and sums them in rank order j = 0..k-1 instead of the reference's
+scatter-add (the same terms in another order).  No atomics.
+
+``apply_moe`` is ``apply_moe_local``: the reference's ``shard_map`` expert
+parallelism (all-gather / psum-scatter and the all-to-all dispatch) comes
+with the multi-device slice, and so do the mesh-padding experts
+(``experts_p``; here ``experts_p == n_experts``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init, param_dict
+
+__all__ = ["moe_init", "apply_moe", "apply_moe_local", "apply_moe_ref", "moe_capacity"]
+
+
+def moe_init(gen, cfg, dtype, device):
+    """Router (d, E) in float32 in every model dtype; experts (E, d, f) and
+    (E, f, d)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return param_dict({
+        "router": dense_init(gen, (d, E), d, torch.float32, device),
+        "w_gate": dense_init(gen, (E, d, f), d, dtype, device),
+        "w_up": dense_init(gen, (E, d, f), d, dtype, device),
+        "w_down": dense_init(gen, (E, f, d), f, dtype, device),
+    })
+
+
+def moe_capacity(cfg, seq_len: int) -> int:
+    c = math.ceil(seq_len * cfg.experts_per_token * cfg.capacity_factor
+                  / cfg.n_experts)
+    return max(4, min(int(c), seq_len)) if seq_len > 1 else cfg.experts_per_token
+
+
+# ---------------------------------------------------------------------------
+# routing: token -> (expert, position-in-expert) with per-sequence capacity
+# ---------------------------------------------------------------------------
+
+def _route(cfg, x, router, capacity):
+    """x (B, S, d) -> gates gk (B, S, k) f32, slot (B, S, k) in [0, E·C]
+    (E·C = dropped), slot_token (B, E·C + 1) the token index per slot (S =
+    empty), and the full softmax gates (B, S, E)."""
+    B, S, _ = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    C = capacity
+    logits = x.float() @ router                                      # (B, S, E)
+    gates_full = torch.softmax(logits, dim=-1)
+    gk, ik = torch.topk(gates_full, k, dim=-1)                       # (B, S, k)
+    gk = gk / gk.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    # position-in-expert: priority by (k, token), all rank-0 choices first:
+    # the choices in that order (rank-major), each counting the earlier
+    # choices of its expert -- the reference's per-rank counts plus rank
+    # within the rank, in one cumsum
+    order = ik.transpose(1, 2).reshape(B, k * S)                     # (B, k·S)
+    oh = F.one_hot(order, E)                                         # (B, k·S, E) int64
+    earlier = (torch.cumsum(oh, dim=1) - oh).gather(2, order[..., None])[..., 0]
+    pos = earlier.view(B, k, S).transpose(1, 2)                      # (B, S, k)
+    slot = torch.where(pos >= C, E * C, ik * C + pos)                # (B, S, k)
+    # invert slot -> token: kept slots are distinct; each dropped choice
+    # writes a slot of its own past E·C + 1, and those are cut off
+    n = S * k
+    flat = slot.reshape(B, n)
+    spill = E * C + 1 + torch.arange(n, device=x.device)
+    dest = torch.where(flat < E * C, flat, spill)
+    token_ids = torch.arange(S, device=x.device).repeat_interleave(k).expand(B, n)
+    table = torch.full((B, E * C + 1 + n), S, dtype=torch.int64, device=x.device)
+    table.scatter_(1, dest, token_ids)
+    return gk, slot, table[:, :E * C + 1], gates_full
+
+
+def _dispatch(x, slot_token, n_slots):
+    """Token rows into the slots: (B, n_slots, d), zero where a slot is
+    empty, and the (B, n_slots) mask of filled slots."""
+    B, S, d = x.shape
+    table = slot_token[:, :n_slots]
+    valid = table < S
+    tok = torch.where(valid, table, 0)
+    rows = torch.gather(x, 1, tok[..., None].expand(B, n_slots, d))
+    return torch.where(valid[..., None], rows, torch.zeros((), dtype=x.dtype,
+                                                           device=x.device)), valid
+
+
+def _expert_ffn(w_gate, w_up, w_down, xin):
+    """xin (B, E, C, d) -> (B, E, C, d); SwiGLU per expert."""
+    h = F.silu(torch.einsum("becd,edf->becf", xin, w_gate)) \
+        * torch.einsum("becd,edf->becf", xin, w_up)
+    return torch.einsum("becf,efd->becd", h, w_down)
+
+
+def _combine(h, valid, slot, gk):
+    """Each token's k expert rows of h (B, E·C, d), weighted by ``gk`` and
+    summed in rank order; a dropped choice (slot E·C) reads a zero row."""
+    B, S, k = slot.shape
+    d = h.shape[-1]
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    hz = torch.cat([torch.where(valid[..., None], h, zero),
+                    torch.zeros((B, 1, d), dtype=h.dtype, device=h.device)], dim=1)
+    rows = torch.gather(hz, 1, slot.reshape(B, S * k, 1).expand(B, S * k, d))
+    weighted = rows.view(B, S, k, d) * gk[..., None].to(h.dtype)
+    out = weighted[:, :, 0].float()
+    for j in range(1, k):
+        out = out + weighted[:, :, j]
+    return out
+
+
+def _moe_core(cfg, p, x, capacity):
+    """The MoE math for all E experts; x (B, S, d) full sequence."""
+    B, S, d = x.shape
+    E, C = cfg.n_experts, capacity
+    gk, slot, slot_token, _ = _route(cfg, x, p["router"], C)
+    xin, valid = _dispatch(x, slot_token, E * C)
+    h = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], xin.view(B, E, C, d))
+    return _combine(h.reshape(B, E * C, d), valid, slot, gk)
+
+
+def apply_moe_local(p, cfg, x, capacity=None):
+    """The one-device path (the reference's CPU test path and the oracle
+    for its sharded one)."""
+    C = capacity or moe_capacity(cfg, x.shape[1])
+    return _moe_core(cfg, p, x, C).to(x.dtype)
+
+
+apply_moe = apply_moe_local    # one device (see the module docstring)
+
+
+def apply_moe_ref(p, cfg, x):
+    """Dropless dense reference: every expert on every token, gate-masked.
+    O(T·E·d·f) — tiny test sizes only.  Capacity-dropping in the real path
+    means outputs match only when capacity is not exceeded."""
+    E, k = cfg.n_experts, cfg.experts_per_token
+    gates_full = torch.softmax(x.float() @ p["router"], dim=-1)
+    gk, ik = torch.topk(gates_full, k, dim=-1)
+    gk = gk / gk.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(E):
+        h = F.silu(x @ p["w_gate"][e]) * (x @ p["w_up"][e])
+        ye = (h @ p["w_down"][e]).float()
+        gate_e = torch.where(ik == e, gk, torch.zeros_like(gk)).sum(dim=-1)    # (B, S)
+        out = out + ye * gate_e[..., None]
+    return out.to(x.dtype)

@@ -75,8 +75,10 @@ def test_wrapper_checks_what_the_kernel_takes():
     with pytest.raises(ValueError, match="disagree"):
         ops.flash_attention(q[:, :8], k, v)
     with pytest.raises(ValueError, match="Dh"):
-        big = torch.zeros(2, 4, 130)
+        big = torch.zeros(2, 4, 257)
         ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, k, v, window=-1)
     with pytest.raises(TypeError):
         ops.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(NotImplementedError, match="causal"):

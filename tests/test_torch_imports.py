@@ -51,8 +51,11 @@ def test_importing_the_slice_loads_no_jax():
         "import repro_torch.streaming.faults, repro_torch.core.miniapp\n"
         "import repro_torch.sim.batched, repro_torch.core.whatif\n"
         "import repro_torch.pilot.backends.federated, repro_torch.kernels.lockstep_scan.ops\n"
+        "import repro_torch.models.rglru, repro_torch.models.moe\n"
+        "import repro_torch.configs.recurrentgemma_2b, repro_torch.configs.qwen3_moe_235b_a22b\n"
+        "import repro_torch.configs.granite_moe_3b_a800m\n"
         "from repro_torch.configs.base import list_configs\n"
-        "assert len(list_configs()) == 7\n"
+        "assert len(list_configs()) == 10\n"
         "from repro_torch.pilot.api import PilotComputeService, PilotDescription\n"
         "pcs = PilotComputeService(seed=0)\n"
         "for url in ('torch://', 'serverless://aws-sim', 'hpc://wrangler-sim'):\n"

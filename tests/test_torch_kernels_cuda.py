@@ -250,11 +250,39 @@ def test_flash_attention_bf16_takes_rows_off_16_byte_alignment(device):
 
 def test_flash_attention_smem_bytes_by_dtype(device):
     """The f32 kernel stages f32 tiles with a one-float row pad; the bf16
-    kernel five bf16 tiles of Dh rounded up to 16, plus 8."""
+    kernel five bf16 tiles of Dh rounded up to 16 (above 128: to 192 or
+    256), plus 8.  Both stay under the card's 232,448 B opt-in limit at
+    Dh 256."""
     assert fa_ops.smem_bytes(64, dtype=torch.float32) == (192 * 65 + 64 * 65) * 4
     assert fa_ops.smem_bytes(64, dtype=torch.bfloat16) == 320 * 72 * 2
     assert fa_ops.smem_bytes(40, dtype=torch.bfloat16) == 320 * 56 * 2
     assert fa_ops.smem_bytes(128, dtype=torch.bfloat16) == 320 * 136 * 2
+    assert fa_ops.smem_bytes(144, dtype=torch.bfloat16) == 320 * 200 * 2
+    assert fa_ops.smem_bytes(256, dtype=torch.bfloat16) == 320 * 264 * 2 == 168_960
+    assert fa_ops.smem_bytes(256, dtype=torch.float32) == (192 * 257 + 64 * 65) * 4 == 214_016
+
+
+# Dh above 128 (the bf16 kernel keeps q in shared memory there; RecurrentGemma's
+# Dh 256 with its MQA group of 10) and local windows: one that cuts every kv
+# tile (8), one of a tile (64), one that starts mid-tile (100), one longer than
+# S (no key masked by it) and RecurrentGemma's 2,048 at S 4,096 (heads cut
+# to 10 from its 40 prefill rows)
+@pytest.mark.parametrize("bh,bkv,s,dh,window", [
+    (4, 2, 130, 144, 0), (4, 1, 100, 200, 0), (10, 1, 256, 256, 0),
+    (6, 3, 300, 64, 8), (6, 3, 300, 64, 64), (10, 1, 333, 256, 100),
+    (4, 2, 100, 40, 500), (10, 1, 4096, 256, 2048), (3, 1, 1, 256, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_kernel_matches_plain_at_large_dh_and_windows(
+        device, bh, bkv, s, dh, window, dtype):
+    q, k, v = _qkv(bh, bkv, s, dh, dtype, device, seed=4)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, window=window)
+    want = mha_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tight = FA_BF16_TIGHT if dtype == torch.bfloat16 else {"rtol": 2e-5, "atol": 2e-5}
+    torch.testing.assert_close(got.float(), want.float(), **tight)
 
 
 def test_flash_attention_grid_limit_is_by_dtype(device):
@@ -278,6 +306,36 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(device):
         fa_ops.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, k.cpu(), v)
+    big = torch.zeros(2, 4, 257, device=device)
+    with pytest.raises(ValueError, match="Dh=257"):
+        fa_ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="window"):
+        fa_ops.flash_attention(q, k, v, window=-1)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-moe-3b-a800m",
+                                  "qwen3-moe-235b-a22b"])
+def test_hybrid_and_moe_forward_launch_the_kernel_once_per_attention_layer(device, arch):
+    """The reduced configs on the card: K3 once per attention layer (the
+    ``local_attn`` layers with their window), prefill + decode equal to the
+    forward pass within the smoke tests' 2e-2."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import model as M
+
+    cfg = reduced(arch)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=device)
+    n_attn = sum(kind != "rglru" for kind in cfg.layer_kinds)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    logits = M.forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before + n_attn
+    assert logits.shape == (2, 40, cfg.vocab_size) and torch.isfinite(logits).all()
+    last, caches = M.prefill(params, cfg, tokens[:, :32], 40)
+    torch.testing.assert_close(last, logits[:, 31], rtol=2e-2, atol=2e-2)
+    for i in range(32, 36):
+        step, caches = M.decode_step(params, cfg, tokens[:, i], caches, i)
+        torch.testing.assert_close(step, logits[:, i], rtol=2e-2, atol=2e-2)
 
 
 def test_attend_launches_the_kernel_once_per_layer(device):

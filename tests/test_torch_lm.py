@@ -151,32 +151,24 @@ def test_init_params_has_the_reference_layout(f32):
     assert out.shape == (2, 4) and bool(((out >= 0) & (out < tcfg.vocab_size)).all())
 
 
-@pytest.mark.parametrize("kind", ["rglru", "local_attn", "moe"])
-def test_unported_block_kinds_raise(kind):
+def test_unknown_block_kind_raises():
     _, tcfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(dataclasses.replace(tcfg, block_pattern=(kind,)),
+    with pytest.raises(ValueError, match="unknown block kind 'mlp'"):
+        TM.init_params(dataclasses.replace(tcfg, block_pattern=("mlp",)),
                        torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.apply_block(None, tcfg, kind, torch.zeros(1, 2, tcfg.d_model), None)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        TT.apply_block(None, tcfg, "mlp", torch.zeros(1, 2, tcfg.d_model), None)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        TT.block_cache_init(tcfg, "mlp", 1, 4, device="cpu")
 
 
-def test_local_window_raises(f32):
-    _, tcfg, _, params = f32
-    p = params["stack"][0]["attn"]
-    x = torch.zeros(1, 8, tcfg.d_model)
-    pos = torch.arange(8)[None]
-    for fn in (TA.attend, TA.attend_full):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(p, tcfg, x, pos, window=4)
-
-
-# every ported arch; qwen2-0.5b's two cases keep their ids
+# every arch; qwen2-0.5b's two cases keep their ids
 CONFIG_CASES = [pytest.param(ARCH, small, id=kind)
                 for small, kind in ((False, "published"), (True, "reduced"))] + [
     pytest.param(arch, small, id=f"{arch}-{kind}")
     for arch in ("mamba2-130m", "glm4-9b", "qwen2.5-3b", "qwen2.5-14b", "internvl2-1b",
-                 "musicgen-medium")
+                 "musicgen-medium", "recurrentgemma-2b", "granite-moe-3b-a800m",
+                 "qwen3-moe-235b-a22b")
     for small, kind in ((False, "published"), (True, "reduced"))]
 
 
@@ -187,8 +179,8 @@ def test_config_is_the_references(arch, small):
     want, got = jax_get_config(arch, reduced=small), get_config(arch, reduced=small)
     for f in dataclasses.fields(got):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
-    assert (want.heads_p, want.kv_heads_p, want.vocab_p) == (
-        got.n_heads, got.n_kv_heads, got.vocab_size)
+    assert (want.heads_p, want.kv_heads_p, want.vocab_p, want.experts_p) == (
+        got.n_heads, got.n_kv_heads, got.vocab_size, got.n_experts)
 
 
 def test_cache_init_is_on_the_card_unless_asked(f32):

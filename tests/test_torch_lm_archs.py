@@ -226,7 +226,8 @@ def test_embeds_longer_than_the_prompt_raise_in_both(arch):
 
 # -- config helpers ---------------------------------------------------------
 
-PORTED = ["qwen2-0.5b", "mamba2-130m"] + ARCHS
+PORTED = ["qwen2-0.5b", "mamba2-130m"] + ARCHS + ["recurrentgemma-2b", "granite-moe-3b-a800m",
+                                                  "qwen3-moe-235b-a22b"]
 
 
 def test_shapes_and_list_configs_are_the_references():

@@ -61,6 +61,15 @@ def test_serve_dense_and_frontend_archs_answer_as_greedy_generate(arch):
     _check_served(*_setup(arch, PROMPT))
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-moe-3b-a800m",
+                                  "qwen3-moe-235b-a22b"])
+def test_serve_hybrid_and_moe_archs_answer_as_greedy_generate(arch):
+    """RecurrentGemma's 20-token prompts outrun its reduced window (16), so
+    each micro-batch's prefill rolls the ring and decode wraps it; the MoE
+    configs route a batch of two prompts per micro-batch."""
+    _check_served(*_setup(arch, PROMPT))
+
+
 def test_serve_cli_runs_reduced_on_the_cpu(capsys):
     S.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu", "--requests", "4",
             "--prompt-len", "8", "--new-tokens", "3", "--batch-max", "2"])
@@ -75,6 +84,17 @@ def test_serve_cli_runs_reduced_mamba_on_the_cpu(capsys):
     assert "served 4/4 requests" in out and "retries=0 failed=0" in out
 
 
+def test_full_depth_qwen3_moe_is_refused_before_its_weights_are_drawn(monkeypatch):
+    """~470 GB of bf16 weights against an 80 GB card: ``main`` raises,
+    naming the memory, before ``init_params`` runs (which would fail the
+    test if reached)."""
+    monkeypatch.setattr(S, "_memory_bytes", lambda device: 80 * 10**9)
+    monkeypatch.setattr(S.M, "init_params", lambda *a, **k: pytest.fail("allocated"))
+    with pytest.raises(ValueError, match=r"470\.2 GB of bfloat16 weights.*80\.0 GB"):
+        S.main(["--arch", "qwen3-moe-235b-a22b", "--device", "cpu"])
+    S.check_weights_fit(reduced("qwen3-moe-235b-a22b"), torch.device("cpu"))
+
+
 def test_serve_on_a_missing_card_raises(setup):
     cfg, params, prompts = setup
     if torch.cuda.is_available():
@@ -83,7 +103,8 @@ def test_serve_on_a_missing_card_raises(setup):
         S.serve(cfg, params, prompts, new_tokens=NEW, device="cuda")
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "musicgen-medium", "recurrentgemma-2b",
+                                  "granite-moe-3b-a800m", "qwen3-moe-235b-a22b"])
 def test_serve_cli_runs_reduced_new_archs_on_the_cpu(capsys, arch):
     S.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "4",
             "--prompt-len", "8", "--new-tokens", "3", "--batch-max", "2"])
