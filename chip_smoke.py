@@ -116,7 +116,25 @@ Phases, each printing JSON lines on standard output:
   time;
 * ``lm-parity-mamba``, ``serve-alone-mamba``, ``serve-mamba`` and
   ``serve-profile-mamba`` — the same four phases for full-width
-  Mamba2-130M, whose prefill runs K4;
+  Mamba2-130M, whose prefill runs K4 (every serve phase also checks that
+  serving wrote no lse and ran no backward);
+* ``kernel-K3-bwd`` — K3's backward (``flash_attention_bwd.cu``, three
+  CUDA kernels a call) held against ``mha_bwd_ref`` on the forward's own
+  output and lse at Qwen2-0.5B's training shape, at Dh 128 (BH 160, BKV
+  32) and with a window of 100 at a ragged S, bf16 and f32, twice (the same
+  bits), with CUDA-event times beside the bound, the plain version's and
+  SDPA's backward (``torch.autograd.grad`` on a kept graph);
+* ``train-parity`` — full-width Qwen2-0.5B cut to 2 layers, float32, 2 x
+  256 tokens: the loss and every gradient leaf on the card against the
+  CPU;
+* ``train-qwen2`` — ``launch.train`` on full-width Qwen2-0.5B (24 layers,
+  bf16, 8 x 1,024 tokens a step in 2 microbatches): 30 steps with a
+  checkpoint at 20, then a restart from it that redoes steps 20-29; the
+  loss falls, the restart is bit-exact, K3 forward and backward launch 48
+  times a step; ms a step, tok/s, peak allocated bytes;
+* ``arch-train`` — one step at published width, 2 layers, of
+  Granite-3.0-3B-A800M and InternVL2-1B (with patch embeddings), and
+  Mamba2-130M's training refused on the card (K4 has no backward);
 
 then each phase's seconds, the ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` line, and last
@@ -130,6 +148,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -287,6 +306,34 @@ SSD_SHAPES = [(SSD_SERVING, False), ((1, 100, 24, 64, 128), False),
               ((2, 700, 24, 64, 128), True)]      # 2 x 256 + 188: spans, ragged, h0
 SSD_CHUNK = 256                                   # Mamba2-130M's ssm_chunk
 SSD_TOL = 2e-4                                    # tests/test_kernels.py:96-99's
+# K3's backward (no TPU kernel: the reference's XLA differentiates its
+# model's attend, src/repro/models/attention.py:194).  Rows (BH, BKV, S, Dh,
+# window, dtype): Qwen2-0.5B's training shape (a microbatch of 4 x 1,024),
+# Qwen2.5-14B's heads at Dh 128, and a window of 100 at a ragged S of 1,000
+# (whole 64-key tiles masked for most rows), each in bf16 and f32
+FA_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+FA_BWD_REPLACES = "src/repro/models/attention.py:194"
+FA_BWD_TRAIN = (4 * 14, 4 * 2, 1_024, 64, 0)
+FA_BWD_SHAPES = [sh + (dt,) for sh in (FA_BWD_TRAIN, (4 * 40, 4 * 8, 1_024, 128, 0),
+                                       (14, 2, 1_000, 64, 100))
+                 for dt in ("bfloat16", "float32")]
+# (rtol, atol as a share of the largest entry), tests/test_torch_kernels_cuda.py's
+# FA_BWD_TOL: f32 the forward's 2e-5, atol scaled since dk and dv sum S·G
+# products in another order; bf16 one bf16 step (the kernel computes in f32
+# up to summation order, P and dS entering the products as hi/lo bf16
+# pairs, and both round once), atol for the f32 differences near 0
+FA_BWD_TOLERANCE = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-4)}
+# training: full-width Qwen2-0.5B, 24 layers, bf16, SyntheticLM at 8 x 1,024
+# tokens a step in 2 microbatches, AdamW with f32 moments; 30 steps with a
+# checkpoint at step 20, then a restart from it that redoes steps 20-29
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = DENSE_ARCH, 8, 1_024, 2
+TRAIN_STEPS, TRAIN_CKPT = 30, 20
+# train-parity: the same config cut to 2 layers in f32, 2 x 256 tokens, card
+# against CPU within tests/test_torch_training.py's gradient tolerance
+# (each leaf max|d| <= 1e-4 max|g_cpu| + 1e-6) and its loss rtol 1e-5
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 256
+# arch-train: one step at published width, 2 layers, 4 x 1,024 tokens
+TRAIN_ARCHS = (MOE_ARCH, "internvl2-1b")
 
 
 def emit(obj) -> None:
@@ -394,8 +441,11 @@ def _counters() -> tuple[dict, ...]:
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for counts in _counters():
+    """Set every kernel's launch count to 0 (and K3's count of forward
+    launches that wrote lse)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    for counts in (*_counters(), fa_ops.LSE_WRITES):
         for name in counts:
             counts[name] = 0
 
@@ -516,12 +566,19 @@ def phase_build(torch) -> dict:
           "dynamic_smem_bytes": {
               name: {f"dh{dh}": fa_ops.smem_bytes(dh, dtype=getattr(torch, name))
                      for dh in (40, 64, 128, 256)} for name in ("float32", "bfloat16")}})
+    emit({"phase": "build", "kernel": "flash_attention_bwd",
+          "dynamic_smem_bytes": {
+              name: {f"dh{dh}": fa_ops.bwd_smem_bytes(dh, dtype=getattr(torch, name))
+                     for dh in (40, 64, 128)} for name in ("float32", "bfloat16")}})
     emit({"phase": "build", "kernel": "ssd_scan",
           "dynamic_smem_bytes": {f"n{n}": ssd_ops.smem_bytes(n) for n in (16, 128, 256)}})
     names = " ".join(k["symbol"] for k in kernels)
     missing = [n for n in ("pairwise_sq_dists_kernel", "pairwise_sq_dists_tile_kernel",
                            "assign_kernel", "assign_tile_kernel", "assign_combine_kernel",
                            "flash_attention_kernel", "flash_attention_bf16_kernel",
+                           "fa_bwd_delta_kernel", "fa_bwd_dq_f32_kernel",
+                           "fa_bwd_dkdv_f32_kernel", "fa_bwd_dq_bf16_kernel",
+                           "fa_bwd_dkdv_bf16_kernel",
                            *(f"ssd_scan_{p}_kernel" for p in ssd_ops.PHASES),
                            "lockstep_chain_kernel", "grid_lockstep_kernel")
                if n not in names]
@@ -1813,6 +1870,10 @@ def phase_serve(torch, smi: str, params, arch: str, kernel: str,
     res = serve(cfg, params, prompts, new_tokens=new_tokens, partitions=SERVE_PARTITIONS,
                 batch_max=SERVE_BATCH, device=DEVICE)
     n_launches = launches(kernel)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    training_work = {"flash_attention_bwd": launches("flash_attention_bwd"),
+                     "lse_writes": fa_ops.LSE_WRITES["flash_attention"]}
     peak = torch.cuda.max_memory_allocated()
     lat = [x * 1e3 for x in res.lpx_s]
     n_batches = len(res.batches)
@@ -1829,10 +1890,12 @@ def phase_serve(torch, smi: str, params, arch: str, kernel: str,
            "prefill_ms_per_micro_batch": 1e3 * float(np.mean([p for _, p, _ in res.batches])),
            "decode_ms_per_step": 1e3 * float(np.mean([d for _, _, d in res.batches]))
            / max(1, new_tokens - 1),
-           "launches": {kernel: n_launches},
+           "launches": {kernel: n_launches}, "training_work": training_work,
            "max_memory_allocated_bytes": peak, "card": smi}
     emit(out)
     problems = []
+    if any(training_work.values()):
+        problems.append(f"serving wrote lse or ran K3's backward: {training_work}")
     if res.processed != requests:
         problems.append(f"answered {res.processed}/{requests}")
     if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
@@ -2055,6 +2118,317 @@ def phase_serve_profile(torch, smi: str, params, arch: str, kernel: str,
     return out
 
 
+# -- training ----------------------------------------------------------------------
+
+def fa_bwd_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int, window: int = 0):
+    """(least ms, what bounds it) of K3's backward: q, k, v, the output, dO
+    and lse read once and dq, dk, dv written once at the HBM rate, against
+    five products over the visible (query, key) pairs of each q row (QK^T,
+    dO V^T, P^T dO, dS K, dS^T Q; 2 Dh operations each, 2.5x the forward's
+    two) at the peak of the input type."""
+    t_bytes = ((4 * bh + 4 * bkv) * s * dh * bytes_per_el + 4 * bh * s) / HBM_BYTES_PER_S
+    ops = 10.0 * bh * visible_pairs(s, window) * dh
+    t_ops = ops / (BF16_OPS_PER_S if bytes_per_el == 2 else F32_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_kernel_k3_bwd(torch, smi: str) -> dict:
+    """K3's backward against ``mha_bwd_ref`` on the same inputs (the
+    forward's own output and lse), twice (the same bits), with CUDA-event
+    times beside the bound, the plain version's, and the backward of SDPA
+    through ``torch.autograd.grad`` on a kept graph (its forward outside the
+    timed region), and the forward's without and with lse (the serving and
+    the training launch); each row's worst error as a share of the
+    tolerance."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import lse_ref, mha_bwd_ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results, failed = {}, []
+    for bh, bkv, s, dh, window, dtype_name in FA_BWD_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        rtol, share = FA_BWD_TOLERANCE[dtype_name]
+        q, k, v, do = (torch.randn((n, s, dh), generator=gen, device=dev).to(dtype)
+                       for n in (bh, bkv, bkv, bh))
+        out, lse = fa_ops._forward(q, k, v, window, with_lse=True)
+        got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window)
+        again = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window)
+        want = mha_bwd_ref(q, k, v, out, do, lse, window=window)
+        lse_err = float((lse - lse_ref(q, k, window=window)).abs().max())
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs, shares = {}, {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            g, w = g.float(), w.float()
+            diff = (g - w).abs()
+            errs[name] = float(diff.max())
+            shares[name] = float((diff / (share * w.abs().max() + rtol * w.abs())).max())
+        ok = same and max(shares.values()) <= 1.0 and lse_err <= 1e-5
+        q4, k4, v4 = (t[None].detach().requires_grad_(True) for t in (q, k, v))
+        if 0 < window < s:
+            idx = torch.arange(s, device=dev)
+            mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - window)
+            o4 = sdpa(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        else:
+            o4 = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+        do4 = do[None]
+        bound_ms, by = fa_bwd_bound(bh, bkv, s, dh, q.element_size(), window)
+        row = {"phase": "kernel-K3-bwd", "bh": bh, "bkv": bkv, "s": s, "dh": dh,
+               "window": window, "dtype": dtype_name, "ok": ok, "bit_identical": same,
+               "tolerance": {"rtol": rtol, "atol_share_of_max": share},
+               "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+               "worst_to_tolerance": max(shares.values()), "lse_max_abs_err": lse_err,
+               "ms": cuda_ms(torch, lambda: fa_ops.flash_attention_bwd(
+                   q, k, v, out, do, lse, window)),
+               "plain_ms": cuda_ms(torch, lambda: mha_bwd_ref(q, k, v, out, do, lse,
+                                                             window=window), iters=10),
+               "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                   o4, (q4, k4, v4), do4, retain_graph=True)),
+               "forward_ms": cuda_ms(torch, lambda: fa_ops.flash_attention(
+                   q, k, v, window=window)),
+               "forward_lse_ms": cuda_ms(torch, lambda: fa_ops._forward(
+                   q, k, v, window, with_lse=True)),
+               "bound_ms": bound_ms, "bound_by": by, "card": smi}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        emit(row)
+        results[(bh, bkv, s, dh, window, dtype_name)] = row
+        if not ok:
+            failed.append((bh, bkv, s, dh, window, dtype_name))
+        del q, k, v, do, out, lse, got, again, want, q4, k4, v4, o4
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K3's backward disagrees with mha_bwd_ref or repeats "
+                             f"inexactly at {failed}")
+    return results
+
+
+def phase_train_parity(torch, smi: str) -> dict:
+    """``loss_fn`` and its gradient for full-width Qwen2-0.5B cut to
+    TRAIN_PARITY_LAYERS layers, float32, one SyntheticLM batch: on the card
+    (K3 and its backward kernel) against the same weights on the CPU (the
+    plain versions), the loss within rtol 1e-5 and every gradient leaf
+    within 1e-4 of its largest entry + 1e-6."""
+    import copy
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.training.train_loop import batch_to
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_PARITY_LAYERS,
+                              dtype="float32")
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    cpu.requires_grad_(True)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH,
+                        seed=SEED).batch_at(0)
+    out = {}
+    reset_counts()
+    for name, params, dev in (("card", card, DEVICE), ("cpu", cpu, "cpu")):
+        t0 = time.perf_counter()
+        loss = M.loss_fn(params, cfg, batch_to(batch, dev))
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        out[name] = (float(loss.detach()), [g.detach().cpu() for g in grads],
+                     time.perf_counter() - t0)
+    counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+    names = [n for n, _ in cpu.named_parameters()]
+    worst = {n: float((g - w).abs().max()) / (1e-4 * float(w.abs().max()) + 1e-6)
+             for n, g, w in zip(names, out["card"][1], out["cpu"][1])}
+    loss_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    row = {"phase": "train-parity", "arch": TRAIN_ARCH, "dtype": "float32",
+           "layers": cfg.n_layers, "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
+           "loss_card": out["card"][0], "loss_cpu": out["cpu"][0], "loss_rel_err": loss_rel,
+           "leaves": len(names), "worst_leaf_to_tolerance": max(worst.values()),
+           "worst_leaf": max(worst, key=worst.get), "launches": counts,
+           "card_s": out["card"][2], "cpu_s": out["cpu"][2], "card": smi}
+    emit(row)
+    if not (loss_rel <= 1e-5 and max(worst.values()) <= 1.0
+            and counts == {"flash_attention": cfg.n_layers,
+                           "flash_attention_bwd": cfg.n_layers}):
+        raise AssertionError(f"train-parity: {row}")
+    return row
+
+
+def train_step_profile(torch, cfg, params, opt_state, batch) -> dict:
+    """One training step under ``torch.profiler``: its wall ms, the
+    device's busy share, device ms by kernel family (K3's forward and
+    backward, the GEMMs, the rest), the device ms of ``loss_fn``'s forward
+    and of AdamW (``record_function`` spans), and the host's top ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    step = train_loop.make_train_step(cfg, OptimizerConfig(), TRAIN_MICRO)
+    named = {"loss_fn.forward": (M, "loss_fn"), "adamw": (train_loop, "adamw_step")}
+    torch.cuda.synchronize()
+    with spans(torch, named), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_time_rows(prof)
+    device_ms = sum(r["device_ms"] for r in rows)
+    k3 = kernel_device_ms(rows, "flash_attention")
+    k3_bwd = sum(r["device_ms"] for r in rows if re.search(r"\bfa_bwd_\w+_kernel\b", r["name"]))
+    gemm = gemm_device_ms(rows)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": busy_share(device_ms, wall_ms),
+            "device_ms_by_family": {"k3_forward": k3, "k3_backward": k3_bwd, "gemm": gemm,
+                                    "other": device_ms - k3 - k3_bwd - gemm},
+            "spans": span_device_ms(prof, named), "top_device": rows[:8],
+            "top_host": host_time_rows(prof, top=6)}
+
+
+def phase_train_qwen2(torch, smi: str) -> dict:
+    """``launch.train.train`` on full-width Qwen2-0.5B (24 layers, bf16,
+    random weights from SEED): TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens in TRAIN_MICRO microbatches, a checkpoint at TRAIN_CKPT (and at
+    the end); then a second run from a directory holding only that
+    checkpoint, which resumes there and redoes the steps after it.  The loss
+    must fall (the mean of the last 5 below the first), the restart must be
+    bit-exact (losses, parameters and moments), and K3 forward and backward
+    must each launch 24 x TRAIN_MICRO times a step run; counts set to 0 just
+    before the first run and read just after the second."""
+    import shutil
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.train import train
+
+    cfg = get_config(TRAIN_ARCH)
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICRO,
+              ckpt_every=TRAIN_CKPT, seed=SEED, device=DEVICE, log=lambda line: None)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = train(cfg, ckpt_dir=str(root / "a"), **kw)
+    t1 = time.perf_counter()
+    ckpt = f"step_{TRAIN_CKPT:09d}"
+    shutil.copytree(root / "a" / ckpt, root / "b" / ckpt, copy_function=os.link)
+    shutil.rmtree(root / "a")           # ~5 GB a checkpoint: keep at most two on disk
+    second = train(cfg, ckpt_dir=str(root / "b"), **kw)
+    t2 = time.perf_counter()
+    counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+    lse_writes = fa_ops.LSE_WRITES["flash_attention"]
+    same_params = all(torch.equal(a, b) for a, b in zip(first.params.parameters(),
+                                                        second.params.parameters()))
+    same_moments = all(torch.equal(first.opt_state.mu[n], second.opt_state.mu[n])
+                       and torch.equal(first.opt_state.nu[n], second.opt_state.nu[n])
+                       for n in first.opt_state.mu)
+    steps_run = (TRAIN_STEPS - first.start) + (TRAIN_STEPS - second.start)
+    want = cfg.n_layers * TRAIN_MICRO * steps_run
+    step_ms = sorted(x * 1e3 for x in first.step_s[1:])          # the first step warms up
+    row = {"phase": "train-qwen2", "arch": TRAIN_ARCH, "dtype": cfg.dtype,
+           "layers": cfg.n_layers, "params": sum(p.numel() for p in first.params.parameters()),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+           "steps": TRAIN_STEPS, "checkpoint_step": TRAIN_CKPT, "restart_from": second.start,
+           "losses": first.losses, "losses_after_restart": second.losses,
+           "restart_bit_exact": {"losses": second.losses == first.losses[TRAIN_CKPT:],
+                                 "params": same_params, "moments": same_moments},
+           "ms_per_step": {"median": step_ms[len(step_ms) // 2], "min": step_ms[0],
+                           "first": first.step_s[0] * 1e3},
+           "tokens_per_s": first.tokens_per_s,
+           "peak_allocated_bytes": max(first.peak_bytes, second.peak_bytes),
+           "launches": counts, "lse_writes": lse_writes, "steps_run": steps_run,
+           "first_run_s": t1 - t0, "restart_run_s": t2 - t1,
+           "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+           "card": smi}
+    emit(row)
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training.train_loop import batch_to
+
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    emit({"phase": "train-qwen2-profile", "arch": TRAIN_ARCH, "step": TRAIN_STEPS,
+          **train_step_profile(torch, cfg, second.params, second.opt_state,
+                               batch_to(data.batch_at(TRAIN_STEPS), DEVICE)), "card": smi})
+    del first, second
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    problems = []
+    if not np.mean(row["losses"][-5:]) < row["losses"][0]:
+        problems.append("the loss did not fall")
+    if not all(row["restart_bit_exact"].values()):
+        problems.append(f"restart not bit-exact: {row['restart_bit_exact']}")
+    if counts != {"flash_attention": want, "flash_attention_bwd": want} or lse_writes != want:
+        problems.append(f"K3 launches {counts}, lse writes {lse_writes}, want {want} each")
+    if problems:
+        raise AssertionError(f"train-qwen2: {problems}")
+    return row
+
+
+def phase_arch_train(torch, smi: str) -> dict:
+    """One training step at published width, cut to 2 layers, bf16, of each
+    of TRAIN_ARCHS (Granite's MoE gradients; InternVL2's patch embeddings
+    and prefix mask), 4 x 1,024 tokens: a finite loss near log V, a finite
+    nonzero gradient norm, K3 forward and backward once a layer; then
+    Mamba2-130M, whose training on the card through the launcher must raise
+    from K4's wrapper (K4 has no backward) before any K4 launch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import batch_to, make_train_step
+
+    rows, problems = {}, []
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=ARCH_LAYERS)
+        params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+        params.requires_grad_(True)
+        data = SyntheticLM(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH, seed=SEED,
+                           n_prefix=cfg.n_prefix if cfg.frontend else 0,
+                           d_model=cfg.d_model if cfg.frontend else 0)
+        batch = batch_to(data.batch_at(0), DEVICE)
+        step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = step(params, init_opt_state(params), batch)
+        loss = float(metrics["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+        gnorm = float(metrics["grad_norm"])
+        row = {"phase": "arch-train", "arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+               "params": sum(p.numel() for p in params.parameters()),
+               "batch": SERVE_BATCH, "seq": SERVE_PROMPT,
+               "prefix_embeds": cfg.n_prefix if cfg.frontend else 0,
+               "loss": loss, "log_vocab": float(np.log(cfg.vocab_size)), "grad_norm": gnorm,
+               "step_ms": ms, "launches": counts, "card": smi}
+        emit(row)
+        rows[arch] = row
+        n = kernel_layers(cfg, "flash_attention")
+        if not (np.isfinite(loss) and 0.1 * row["log_vocab"] < loss < 3 * row["log_vocab"]
+                and np.isfinite(gnorm) and gnorm > 0
+                and counts == {"flash_attention": n, "flash_attention_bwd": n}):
+            problems.append(arch)
+        del params, batch, metrics
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=ARCH_LAYERS)
+    refused = None
+    reset_counts()
+    try:
+        train(cfg, steps=1, batch=1, seq=cfg.ssm_chunk, seed=SEED, device=DEVICE,
+              log=lambda line: None)
+    except NotImplementedError as err:
+        refused = str(err)
+    row = {"phase": "arch-train", "arch": SSM_ARCH, "refused": refused,
+           "launches": {"ssd_scan": launches("ssd_scan")}, "card": smi}
+    emit(row)
+    rows[SSM_ARCH] = row
+    if refused is None or "K4's backward" not in refused or launches("ssd_scan"):
+        problems.append(SSM_ARCH)
+    if problems:
+        raise AssertionError(f"arch-train: {problems} failed their checks")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2141,6 +2515,10 @@ def main() -> int:
     run("lm-parity-mamba", phase_lm_parity, torch, smi, SSM_ARCH, "ssd_scan",
         "lm-parity-mamba")
     serving["ssd_scan"] = serving_path(SSM_ARCH, "ssd_scan", "-mamba")
+    k3_bwd = run("kernel-K3-bwd", phase_kernel_k3_bwd, torch, smi)
+    run("train-parity", phase_train_parity, torch, smi)
+    trained = run("train-qwen2", phase_train_qwen2, torch, smi)
+    run("arch-train", phase_arch_train, torch, smi)
     emit({"phase": "seconds", **seconds})
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -2183,6 +2561,7 @@ def main() -> int:
             "launches"]["flash_attention"],
         "launches_serve_granite": serving["flash_attention_granite"]["launches"][
             "flash_attention"],
+        "launches_train_qwen2": trained["launches"]["flash_attention"],
         **{f"{key}_dh256": rg[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")},
         "shape_dh256": dict(zip(("bh", "bkv", "s", "dh", "window"), FA_SERVING_RG),
@@ -2191,6 +2570,21 @@ def main() -> int:
                                                        "bound_ms", "bound_by", "library_ms")},
         "shape_window": dict(zip(("bh", "bkv", "s", "dh", "window"), FA_WINDOWED[0][:5]),
                              dtype="bfloat16")})
+    row, big = k3_bwd[FA_BWD_TRAIN + ("bfloat16",)], k3_bwd[FA_BWD_SHAPES[2]]
+    summary.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
+        "replaces": FA_BWD_REPLACES,
+        "replaces_note": "no TPU kernel: XLA differentiates the reference's attend",
+        "launches": trained["launches"]["flash_attention_bwd"],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "worst_to_tolerance": row["worst_to_tolerance"],
+        "bit_identical": row["bit_identical"],
+        "shape": dict(zip(("bh", "bkv", "s", "dh"), FA_BWD_TRAIN), dtype="bfloat16"),
+        **{f"{key}_dh128": big[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+        "shape_dh128": dict(zip(("bh", "bkv", "s", "dh"), FA_BWD_SHAPES[2]),
+                            dtype="bfloat16")})
     row = k4[(SSD_SERVING, False)]
     summary.append({
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,

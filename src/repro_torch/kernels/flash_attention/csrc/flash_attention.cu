@@ -97,6 +97,11 @@
 // reads free of bank conflicts.  Above Dh = 128 each thread holds 16
 // columns of the accumulator (DN 16), 64 f32; 128 registers, no spill.
 //
+// Training (the lse argument, NULL when serving): each row's log-sum-exp of
+// its scaled scores, m + log l, is written to an f32 (BH, S) array from the
+// registers that hold m and l, once per row; serving does the same work as
+// without it but for that branch.
+//
 // C interface (loaded with ctypes): fa_forward launches on the given stream
 // of the given device, leaves the caller's current device as it found it,
 // does not synchronise, and returns a cudaError_t (0 on success).
@@ -108,44 +113,16 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "fa_common.cuh"
+
 namespace {
-
-constexpr int BQ = 64;                // query rows per block
-constexpr int TK = 64;                // keys per kv tile
-constexpr float NEG_INF = -1e30f;
-
-// -- f32: CUDA cores ---------------------------------------------------------
-
-constexpr int TX = 16;                // threads along keys / head-dim columns
-constexpr int TY = 16;                // threads along query rows
-constexpr int TM = BQ / TY;           // rows per thread (4)
-constexpr int TN = TK / TX;           // keys per thread (4)
-constexpr int THREADS = TX * TY;      // 256
-constexpr int PLD = TK + 1;           // row stride of the probability tile
-
-// The first kv tile that a query tile starting at row q0 sees: 0 without a
-// window, else the tile of key q0 - window + 1.
-__device__ __forceinline__ int first_tile(int q0, int window) {
-  return window > 0 ? max(0, q0 - window + 1) / TK : 0;
-}
-
-// Stage `rows` (<= 64) rows of a contiguous (rows, dh) slab into
-// tile[64][ld] times `mul`, zero-filling rows past the slab.  Consecutive
-// threads read consecutive elements, so the loads coalesce.
-__device__ __forceinline__ void stage(float* __restrict__ tile,
-                                      const float* __restrict__ src, int rows,
-                                      int dh, int ld, float mul) {
-  for (int e = threadIdx.x; e < 64 * dh; e += THREADS) {
-    const int r = e / dh, c = e - r * dh;
-    tile[r * ld + c] = r < rows ? src[(size_t)r * dh + c] * mul : 0.f;
-  }
-}
 
 template <int DN>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int S,
-                       int dh, int group, float scale, int window) {
+                       const float* __restrict__ v, float* __restrict__ out,
+                       float* __restrict__ lse, int S, int dh, int group, float scale,
+                       int window) {
   extern __shared__ float smem[];
   const int ld = dh + 1;
   float* qs = smem;                   // [BQ][ld], q * scale
@@ -250,6 +227,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty + TY * i;
     if (row >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * S + row] = m[i] + logf(den);
     float* orow = out + ((size_t)bh * S + row) * dh;
 #pragma unroll
     for (int j = 0; j < DN; ++j) {
@@ -261,92 +239,13 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // -- bf16: tensor cores ------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-constexpr int TC_THREADS = 128;       // 4 warps, 16 query rows each
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of the i-th.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// d (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi).
-__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// Stage `rows` (<= 64) rows of a contiguous (rows, dh) slab into
-// tile[64][DP + 8], zero-filling rows past the slab and columns dh..DP.
-// `vec`: 16-byte cp.async copies (dh % 8 == 0, 16-byte aligned src), left
-// in flight for the caller to commit and wait on; else plain loads.
-template <int DP>
-__device__ __forceinline__ void stage_bf16(bf16* __restrict__ tile,
-                                           const bf16* __restrict__ src, int rows,
-                                           int dh, bool vec) {
-  constexpr int LD = DP + 8;
-  if (vec) {
-    constexpr int CH = DP / 8;          // 16-byte chunks of a row
-    for (int e = threadIdx.x; e < 64 * CH; e += TC_THREADS) {
-      const int r = e / CH, c = e - r * CH;
-      const bool in = r < rows && c * 8 < dh;
-      cp_async16(tile + r * LD + c * 8, in ? src + (size_t)r * dh + c * 8 : src,
-                 in ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < 64 * DP; e += TC_THREADS) {
-      const int r = e / DP, c = e - r * DP;
-      tile[r * LD + c] = r < rows && c < dh ? src[(size_t)r * dh + c]
-                                            : __float2bfloat16(0.f);
-    }
-  }
-}
 
 template <int DK>   // DP = 16 DK: Dh zero-filled up to a multiple of 16
 __global__ void __launch_bounds__(TC_THREADS)
 flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ out,
-                            int S, int dh, int group, float scale, int window, bool vec) {
+                            float* __restrict__ lse, int S, int dh, int group, float scale,
+                            int window, bool vec) {
   constexpr int DP = 16 * DK, LD = DP + 8, TILE = BQ * LD;
   constexpr bool QREG = DK <= 8;      // q fragments in registers, else read per tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -489,6 +388,8 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     den[r] = fmaxf(l[r], 1e-30f);
+    const int row = q0 + warp * 16 + g + r * 8;
+    if (lse != nullptr && tq == 0 && row < S) lse[(size_t)bh * S + row] = m[r] + logf(den[r]);
   }
   bf16* os = qs + warp * 16 * LD;     // this warp's 16 rows of the q tile
 #pragma unroll
@@ -534,7 +435,7 @@ size_t smem_bytes(int dh, int dtype) {
 }
 
 template <int DN>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
                        int bh, int bkv, int S, int dh, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(dh, 0);
   auto kernel = flash_attention_kernel<DN>;
@@ -544,23 +445,22 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((S + BQ - 1) / BQ, bh);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, dh, bh / bkv,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, dh, bh / bkv,
       1.0f / sqrtf((float)dh), window);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out,
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
                          int bh, int bkv, int S, int dh, int window, cudaStream_t stream) {
-  if (dh <= 32) return launch_f32<2>(q, k, v, out, bh, bkv, S, dh, window, stream);
-  if (dh <= 64) return launch_f32<4>(q, k, v, out, bh, bkv, S, dh, window, stream);
-  if (dh <= 128) return launch_f32<8>(q, k, v, out, bh, bkv, S, dh, window, stream);
-  return launch_f32<16>(q, k, v, out, bh, bkv, S, dh, window, stream);
+  if (dh <= 32) return launch_f32<2>(q, k, v, out, lse, bh, bkv, S, dh, window, stream);
+  if (dh <= 64) return launch_f32<4>(q, k, v, out, lse, bh, bkv, S, dh, window, stream);
+  if (dh <= 128) return launch_f32<8>(q, k, v, out, lse, bh, bkv, S, dh, window, stream);
+  return launch_f32<16>(q, k, v, out, lse, bh, bkv, S, dh, window, stream);
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <int DK>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse,
                         int bh, int bkv, int S, int dh, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(dh, 1);
   auto kernel = flash_attention_bf16_kernel<DK>;
@@ -572,14 +472,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(bh, (S + BQ - 1) / BQ);
   kernel<<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, dh, bh / bkv,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, dh, bh / bkv,
       1.0f / sqrtf((float)dh), window, vec);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* out,
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* out, float* lse,
                           int bh, int bkv, int S, int dh, int window, cudaStream_t stream) {
-#define FA_BF16(DK) launch_bf16<DK>(q, k, v, out, bh, bkv, S, dh, window, stream)
+#define FA_BF16(DK) launch_bf16<DK>(q, k, v, out, lse, bh, bkv, S, dh, window, stream)
   switch (bf16_dk(dh)) {
     case 1: return FA_BF16(1);
     case 2: return FA_BF16(2);
@@ -594,24 +494,6 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* out
   }
 #undef FA_BF16
 }
-
-// Makes `device` current for one launch and gives the caller's device back.
-struct DeviceGuard {
-  int prev = 0;
-  bool switched = false;
-  cudaError_t err;
-  explicit DeviceGuard(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) {
-      err = cudaSetDevice(device);
-      switched = err == cudaSuccess;
-    }
-  }
-  ~DeviceGuard() {
-    if (switched) cudaSetDevice(prev);
-  }
-};
-
 }  // namespace
 
 extern "C" {
@@ -626,9 +508,11 @@ int fa_smem_bytes(int dh, int dtype) {
 // q (bh, S, dh); k, v (bkv, S, dh); out (bh, S, dh); all contiguous, one
 // dtype (0 = float32, 1 = bfloat16); bh % bkv == 0, 0 < dh <= 256; grid.y
 // (bh for float32, the 64-query tiles for bfloat16) at most 65535; window
-// 0 (causal) or the local window (>= 1).
-int fa_forward(const void* q, const void* k, const void* v, void* out, int bh,
-               int bkv, int S, int dh, int window, int dtype, int device,
+// 0 (causal) or the local window (>= 1).  lse: NULL (serving), or (bh, S)
+// float32 that receives each row's log-sum-exp m + log l of its scaled
+// scores, which the backward (flash_attention_bwd.cu) reads.
+int fa_forward(const void* q, const void* k, const void* v, void* out, float* lse,
+               int bh, int bkv, int S, int dh, int window, int dtype, int device,
                void* stream) {
   if (bh <= 0 || bkv <= 0 || bh % bkv || S <= 0 || dh <= 0 || dh > 256 || window < 0)
     return cudaErrorInvalidValue;
@@ -636,8 +520,8 @@ int fa_forward(const void* q, const void* k, const void* v, void* out, int bh,
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_f32(q, k, v, out, bh, bkv, S, dh, window, s);
-  if (dtype == 1) return dispatch_bf16(q, k, v, out, bh, bkv, S, dh, window, s);
+  if (dtype == 0) return dispatch_f32(q, k, v, out, lse, bh, bkv, S, dh, window, s);
+  if (dtype == 1) return dispatch_bf16(q, k, v, out, lse, bh, bkv, S, dh, window, s);
   return cudaErrorInvalidValue;
 }
 

@@ -17,6 +17,12 @@ states with C Bᵀ per chunk beside them, state passing across spans, output;
 see the source's note) on scratch this wrapper allocates.  ``LAUNCHES`` counts
 calls that launch them, one per call (CPython's GIL keeps the single
 ``+=`` whole across the serving path's consumer threads).
+
+The kernels have no backward yet (ROADMAP queue 2, K4's backward): their
+outputs carry no ``grad_fn``.  So a CUDA call with grad mode on and an
+input that requires grad raises ``NotImplementedError`` instead of
+returning outputs through which ``backward`` would silently give no
+gradient upstream.  On the CPU, autograd differentiates ``ssd_chunked``.
 """
 
 from __future__ import annotations
@@ -101,6 +107,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
         return y, h.contiguous()        # as the kernel returns it
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, h0)):
+        raise NotImplementedError(
+            "ssd_scan: the SSD scan kernel has no backward yet (ROADMAP queue 2, K4's "
+            "backward), so it cannot train on the card; run under torch.no_grad() or "
+            "on the CPU")
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     n_chunks = -(-S // Q)

@@ -27,14 +27,19 @@ __all__ = ["dense_init", "embed_init", "norm_init", "apply_norm",
 # ---------------------------------------------------------------------------
 
 def param_dict(tensors: dict[str, torch.Tensor]) -> nn.ParameterDict:
-    """Frozen parameters (this slice serves; training comes later)."""
+    """Parameters, frozen by default: serving needs no gradient.  The
+    training entry points (``training.train_loop``, ``launch.train``) call
+    ``requires_grad_(True)`` on the whole tree."""
     return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
                              for k, t in tensors.items()})
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
     """N(0, std^2) drawn in float32 on the generator's device, then cast and
-    placed on ``device``."""
+    placed on ``device``; on the ``meta`` device, shape and dtype only (no
+    draw, nothing allocated: ``launch.steps.build_train``'s abstract shapes)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return (t * std).to(device=device, dtype=dtype)
 

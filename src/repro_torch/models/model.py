@@ -1,4 +1,4 @@
-"""Language-model API for serving: init, forward, prefill, decode, generate.
+"""Language-model API: init, forward, loss, prefill, decode, generate.
 
 Ports ``repro.models.model`` for every family (dense, frontend, SSM,
 hybrid and MoE) on one device.
@@ -14,8 +14,12 @@ Modality frontends are stubs, as in the reference: ``forward`` and
 ``prefill`` take ``embeds`` (B, P, d), precomputed frame or patch
 embeddings that replace the token embeddings of the first P <= S
 positions of a config with a ``frontend``.  Sinusoidal positions are added
-to the input embeddings in prefill and decode.  ``loss_fn`` and training
-are not ported yet (ROADMAP queue 1).
+to the input embeddings in prefill and decode.
+
+``loss_fn`` is the training objective (reference ``model.py:76``):
+next-token NLL, the frontend's prefix positions masked out, differentiable
+through every layer; on the card its attention runs kernel K3 forward and
+backward (``kernels.flash_attention.ops``).
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from repro_torch.models.layers import (apply_norm, embed_tokens, embedding_init,
                                        logits_head, norm_init, param_dict,
                                        sinusoidal_pos_emb)
 
-__all__ = ["init_params", "params_from_numpy", "forward", "cache_init", "prefill",
-           "decode_step", "decode_greedy", "greedy_generate"]
+__all__ = ["init_params", "params_from_numpy", "forward", "loss_fn", "cache_init",
+           "prefill", "decode_step", "decode_greedy", "greedy_generate"]
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -114,6 +118,47 @@ def forward(params, cfg, tokens: torch.Tensor, embeds: torch.Tensor | None = Non
     x, _ = tf.apply_stack(params["stack"], cfg, x, positions)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     return logits_head(params["embedding"], cfg, x)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Summed masked NLL of f32 logits (..., V) at int labels (...).  The
+    gold logit is a ``gather`` of one label a position, whose backward
+    writes each position's own slot (no colliding indices)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return ((logz - gold) * mask).sum()
+
+
+def _xent(logits, labels, mask):
+    """logits (B, S, V) fp32, labels (B, S) int, mask (B, S) -> mean nll."""
+    return _nll(logits, labels, mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, cfg, batch) -> torch.Tensor:
+    """batch: {"tokens": (B, S) int, optional "embeds": (B, n_prefix, d)}.
+    Next-token prediction; frontend-prefix positions are masked out.  With
+    ``cfg.loss_chunk`` dividing S - 1 (and below it) the vocab projection
+    runs over (B, loss_chunk, V) blocks in a loop, summing NLL and mask in
+    the reference's scan order; under autograd each block's logits are
+    still kept for the backward."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = _positions(B, 0, S, tokens.device)
+    x = _embed_inputs(params, cfg, tokens, batch.get("embeds"), positions)
+    x, _ = tf.apply_stack(params["stack"], cfg, x, positions)
+    x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+    labels = tokens[:, 1:]
+    mask = (positions[:, 1:] >= cfg.n_prefix).float()
+    h = x[:, :-1]
+    C = cfg.loss_chunk
+    if C and (S - 1) % C == 0 and S - 1 > C:
+        nll = msum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for c in range(0, S - 1, C):
+            logits = logits_head(params["embedding"], cfg, h[:, c:c + C])
+            nll = nll + _nll(logits, labels[:, c:c + C], mask[:, c:c + C])
+            msum = msum + mask[:, c:c + C].sum()
+        return nll / torch.clamp(msum, min=1.0)
+    return _xent(logits_head(params["embedding"], cfg, h), labels, mask)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@ every config the port registers (the reference's ten), reduced, with random
 weights drawn from a seed, on the CPU.  A forward pass has the right shape
 and is finite; prefill + decode equal the forward pass within the
 reference's 2e-2 (the K/V cache, ring cache and recurrent states are exact
-paths, not approximations); greedy generation runs.  The reference's
-train-step test waits for the port's training slice."""
+paths, not approximations); greedy generation runs; and, as the reference's
+train-step test, the loss of a random model sits near log V with finite
+gradients, most of them nonzero, and one training step of
+``training.train_loop`` runs with finite metrics."""
 
 import dataclasses
 
@@ -15,6 +17,8 @@ import torch
 from repro.configs.base import list_configs as jax_list_configs
 from repro_torch.configs.base import get_config, list_configs
 from repro_torch.models import model as M
+from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+from repro_torch.training.train_loop import make_train_step
 
 ARCHS = list_configs()
 B, S = 2, 32
@@ -44,6 +48,29 @@ def test_forward_shapes_and_finiteness(arch):
     assert logits.shape == (B, S, cfg.vocab_size)
     assert logits.dtype == torch.float32
     assert torch.isfinite(logits).all(), f"{arch}: non-finite logits"
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_loss_and_grads_finite(arch):
+    cfg, params, tokens, embeds = _setup(arch)
+    params.requires_grad_(True)
+    batch = {"tokens": tokens} if embeds is None else {"tokens": tokens, "embeds": embeds}
+    loss = M.loss_fn(params, cfg, batch)
+    assert torch.isfinite(loss), f"{arch}: loss {loss}"
+    # a random model over V tokens should sit near log(V)
+    assert 0.1 * np.log(cfg.vocab_size) < float(loss.detach()) < 3.0 * np.log(cfg.vocab_size)
+    leaves = list(params.parameters())
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+    assert grads, "no grads"
+    for g in grads:
+        assert torch.isfinite(g).all(), f"{arch}: non-finite grad"
+    nonzero = sum(float(g.abs().sum()) > 0 for g in grads)
+    assert nonzero > len(grads) // 2, f"{arch}: too many zero grads"
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1))
+    _, state, metrics = step(params, init_opt_state(params), batch)
+    assert int(state.step) == 1
+    assert all(torch.isfinite(metrics[k]) for k in ("loss", "grad_norm", "lr", "param_norm"))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

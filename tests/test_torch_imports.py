@@ -54,6 +54,10 @@ def test_importing_the_slice_loads_no_jax():
         "import repro_torch.models.rglru, repro_torch.models.moe\n"
         "import repro_torch.configs.recurrentgemma_2b, repro_torch.configs.qwen3_moe_235b_a22b\n"
         "import repro_torch.configs.granite_moe_3b_a800m\n"
+        "import repro_torch.data.pipeline, repro_torch.training.optimizer\n"
+        "import repro_torch.training.train_loop, repro_torch.training.checkpoint\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
         "from repro_torch.configs.base import list_configs\n"
         "assert len(list_configs()) == 10\n"
         "from repro_torch.pilot.api import PilotComputeService, PilotDescription\n"
@@ -67,6 +71,11 @@ def test_importing_the_slice_loads_no_jax():
         "from repro_torch.core.miniapp import AdaptationExperiment, run_plan\n"
         "exp = AdaptationExperiment(scaling_policy='reactive', horizon_s=20.0)\n"
         "assert run_plan(exp).fast_path\n"
+        "from repro_torch.configs.base import get_config\n"
+        "from repro_torch.launch.train import train\n"
+        "res = train(get_config('qwen2-0.5b', reduced=True), steps=2, batch=2, seq=8,\n"
+        "            device='cpu', log=lambda line: None)\n"
+        "assert len(res.losses) == 2\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.core import miniapp
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels.flash_attention.ref import lse_ref, mha_bwd_ref, mha_ref
 from repro_torch.kernels.kmeans_distance import ops
 from repro_torch.kernels.kmeans_distance.ref import assign_ref, pairwise_sq_dists_ref
 from repro_torch.models import kmeans
@@ -352,6 +352,141 @@ def test_attend_launches_the_kernel_once_per_layer(device):
     assert logits.shape == (2, 40, cfg.vocab_size) and torch.isfinite(logits).all()
 
 
+# -- K3's backward -----------------------------------------------------------
+
+# f32: the forward's 2e-5 (tests/test_kernels.py:64) as rtol, and atol 2e-5
+# of the largest entry, since dk and dv sum S·G products in another order
+# than mha_bwd_ref.  bf16, derived as chip_smoke.py's FA_TOLERANCE: the
+# kernel multiplies bf16 values exactly with f32 sums and enters P and dS as
+# hi/lo bf16 pairs (~16 bits each), so it and mha_bwd_ref both compute in
+# f32 up to summation order and round to bf16 once: one bf16 step (rtol
+# 8e-3), and atol 1e-4 of the largest entry for their f32 differences near
+# 0 (the f32 kernel's run ~4e-6 of it at S 1,024; the hi/lo split adds
+# ~2**-16).  lse: f32 values up to ~10, the online max and sum against
+# logsumexp: a few ulps, atol 1e-5.
+FA_BWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (8e-3, 1e-4)}
+
+
+def _bwd_close(got, want, dtype):
+    rtol, share = FA_BWD_TOL[dtype]
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=share * float(want.abs().max()))
+
+
+def _bwd_inputs(bh, bkv, s, dh, dtype, device, seed=0):
+    q, k, v = _qkv(bh, bkv, s, dh, dtype, device, seed)
+    rng = np.random.default_rng(seed + 100)
+    do = torch.from_numpy(rng.standard_normal((bh, s, dh), dtype=np.float32)).to(device, dtype)
+    return q, k, v, do
+
+
+# (BH, BKV, S, Dh, window): Dh 16 without GQA; Qwen2-0.5B's training shape
+# (G 7); a window of 100 at a ragged S (the last rows' windows start past
+# whole 64-key tiles); ragged S and Dh; Dh 128 at G 5 (Qwen2.5-14B's group);
+# Dh 128 with a window of 8 (most key tiles fully masked for most rows of a
+# query tile) at a ragged S; MQA
+BWD_SHAPES = [(4, 4, 128, 16, 0), (56, 8, 1024, 64, 0), (14, 2, 300, 64, 100),
+              (6, 3, 1000, 40, 0), (20, 4, 256, 128, 0), (8, 4, 520, 128, 8),
+              (7, 1, 200, 64, 0)]
+
+
+@pytest.mark.parametrize("bh,bkv,s,dh,window", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_backward_matches_plain_and_repeats_bit_for_bit(
+        device, bh, bkv, s, dh, window, dtype):
+    q, k, v, do = _bwd_inputs(bh, bkv, s, dh, dtype, device)
+    out, lse = fa_ops._forward(q, k, v, window, with_lse=True)
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, window=window))   # lse costs nothing
+    torch.testing.assert_close(lse, lse_ref(q, k, window=window), rtol=0, atol=1e-5)
+    before = fa_ops.LAUNCHES["flash_attention_bwd"]
+    got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window)
+    want = mha_bwd_ref(q, k, v, out, do, lse, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == before + 2
+    for g, a, w, x in zip(got, again, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape and torch.isfinite(g).all()
+        assert torch.equal(g, a)                  # no atomics: the same bits
+        _bwd_close(g, w, dtype)
+
+
+def test_flash_attention_trains_through_the_backward_kernel(device):
+    """Through autograd: the forward writes lse once, the backward kernel
+    runs once, and the gradients are the backward wrapper's; without grad,
+    no lse is written."""
+    q, k, v, do = _bwd_inputs(14, 2, 300, 64, torch.bfloat16, device, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(fa_ops.LAUNCHES)
+    lse_before = fa_ops.LSE_WRITES["flash_attention"]
+    got = torch.autograd.grad(fa_ops.flash_attention(*leaves, window=100), leaves, do)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert fa_ops.LSE_WRITES["flash_attention"] == lse_before + 1
+    out, lse = fa_ops._forward(q, k, v, 100, with_lse=True)
+    for g, w in zip(got, fa_ops.flash_attention_bwd(q, k, v, out, do, lse, 100)):
+        assert torch.equal(g, w)
+    lse_before = fa_ops.LSE_WRITES["flash_attention"]
+    with torch.no_grad():
+        fa_ops.flash_attention(*leaves, window=100)
+    with torch.inference_mode():
+        fa_ops.flash_attention(q, k, v, window=100)
+    assert fa_ops.LSE_WRITES["flash_attention"] == lse_before
+
+
+def test_flash_attention_refuses_a_gradient_above_dh_128(device):
+    q, k, v = _qkv(4, 1, 64, 256, torch.bfloat16, device)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Dh=256"):
+        fa_ops.flash_attention(q, k, v)
+    with torch.no_grad():
+        assert torch.isfinite(fa_ops.flash_attention(q, k, v)).all()   # serving still runs
+
+
+def test_flash_attention_backward_smem_bytes(device):
+    """(b) stages k, v, q and dO tiles and lse and D rows; (c) the four
+    tiles; f32 also P and dS tiles (a one-float row pad).  Under the
+    232,448 B opt-in limit at Dh 128."""
+    assert fa_ops.bwd_smem_bytes(64, dtype=torch.bfloat16) == {
+        "dkdv": 256 * 72 * 2 + 2 * 64 * 4, "dq": 256 * 72 * 2}
+    assert fa_ops.bwd_smem_bytes(128, dtype=torch.float32) == {
+        "dkdv": (256 * 129 + 2 * 64 * 65 + 128) * 4, "dq": (256 * 129 + 64 * 65) * 4}
+    assert max(fa_ops.bwd_smem_bytes(128, dtype=torch.float32).values()) <= 232_448
+
+
+def test_loss_gradients_on_the_card_match_the_cpu(device):
+    """Reduced Qwen2-0.5B in float32: ``loss_fn``'s gradient through K3 and
+    its backward kernel on the card against the plain versions on the CPU,
+    each leaf within the CPU parity test's 1e-4 of its largest entry; K3
+    forward and backward once per layer."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.training.train_loop import batch_to
+
+    cfg = dataclasses.replace(reduced("qwen2-0.5b"), dtype="float32")
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu.requires_grad_(True)
+    card = copy.deepcopy(cpu).to(device)
+    batch = SyntheticLM(cfg.vocab_size, 100, 2, seed=1).batch_at(0)
+    grads = []
+    before = dict(fa_ops.LAUNCHES)
+    for params, dev in ((cpu, "cpu"), (card, device)):
+        leaves = list(params.parameters())
+        loss = M.loss_fn(params, cfg, batch_to(batch, dev))
+        grads.append([loss] + list(torch.autograd.grad(loss, leaves)))
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + cfg.n_layers
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + cfg.n_layers
+    for want, got in zip(*grads):
+        got = got.detach().cpu()
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-6
+
+
 # -- K4 ssd_scan -------------------------------------------------------------
 
 SSD_TOL = 2e-4                                           # tests/test_kernels.py:96-99's
@@ -460,6 +595,39 @@ def test_ssd_scan_wrapper_rejects_what_the_kernel_does_not_take(device):
         ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=48)
     with pytest.raises(TypeError):
         ssd_ops.ssd_scan(x.bfloat16(), dt, A, Bm, Cm, chunk=64)
+
+
+def test_ssd_scan_refuses_inputs_that_require_grad(device):
+    """K4 has no backward: with a gradient asked for it raises rather than
+    return outputs through which training would get no gradient."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 64, 2, 8, 16, device)
+    before = ssd_ops.LAUNCHES["ssd_scan"]
+    for t in (x, A):
+        t.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="K4's backward"):
+            ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+        t.requires_grad_(False)
+    assert ssd_ops.LAUNCHES["ssd_scan"] == before
+    x.requires_grad_(True)
+    with torch.no_grad():
+        y, _ = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    assert y.grad_fn is None and ssd_ops.LAUNCHES["ssd_scan"] == before + 1
+
+
+def test_train_refuses_mamba2_on_the_card_before_any_update(device):
+    """The launcher owns no refusal of its own: K4's wrapper raises in the
+    first step's forward, so no update runs and no K4 launch is made."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.train import train
+
+    before = ssd_ops.LAUNCHES["ssd_scan"]
+    with pytest.raises(NotImplementedError, match="K4's backward"):
+        train(reduced("mamba2-130m"), steps=1, batch=1, seq=32, device=device,
+              log=lambda line: None)
+    assert ssd_ops.LAUNCHES["ssd_scan"] == before
 
 
 def test_mamba_forward_launches_the_kernel_once_per_layer(device):
