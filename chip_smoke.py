@@ -72,6 +72,16 @@ Phases, each printing JSON lines on standard output:
   and where a window bites (Dh 256, window 2,048 at S 4,096; a window of
   100 on the ragged shape), with CUDA-event times beside the bound and
   SDPA (given the window as a boolean mask);
+* ``kernel-K3-bwd`` — K3's backward (``flash_attention_bwd.cu``: bf16 on
+  wgmma with TMA tiles, four CUDA kernels a call; f32 on the CUDA cores,
+  three) held against ``mha_bwd_ref`` on the forward's own output and lse
+  at Qwen2-0.5B's training shape, at Dh 128 (BH 160, BKV 32), with a
+  window of 100 at a ragged S, and at RecurrentGemma-2B's training shape
+  (Dh 256, G 10), bf16 and f32, twice (the same bits), with CUDA-event
+  times beside the bound, the plain version's and SDPA's backward
+  (``torch.autograd.grad`` on a kept graph), each CUDA kernel's device
+  time, and the route taken (bf16 rows must take TMA's), before the serving
+  phases (late in the run the profiler recorded none of its kernels);
 * ``lm-parity`` — full-width Qwen2-0.5B in float32: prefill logits and
   greedy tokens of the model on the card (through K3) against the same
   model on the CPU (plain versions);
@@ -118,12 +128,6 @@ Phases, each printing JSON lines on standard output:
   ``serve-profile-mamba`` — the same four phases for full-width
   Mamba2-130M, whose prefill runs K4 (every serve phase also checks that
   serving wrote no lse and ran no backward);
-* ``kernel-K3-bwd`` — K3's backward (``flash_attention_bwd.cu``, three
-  CUDA kernels a call) held against ``mha_bwd_ref`` on the forward's own
-  output and lse at Qwen2-0.5B's training shape, at Dh 128 (BH 160, BKV
-  32) and with a window of 100 at a ragged S, bf16 and f32, twice (the same
-  bits), with CUDA-event times beside the bound, the plain version's and
-  SDPA's backward (``torch.autograd.grad`` on a kept graph);
 * ``train-parity`` — full-width Qwen2-0.5B cut to 2 layers, float32, 2 x
   256 tokens: the loss and every gradient leaf on the card against the
   CPU;
@@ -133,14 +137,26 @@ Phases, each printing JSON lines on standard output:
   loss falls, the restart is bit-exact, K3 forward and backward launch 48
   times a step; ms a step, tok/s, peak allocated bytes;
 * ``arch-train`` — one step at published width, 2 layers, of
-  Granite-3.0-3B-A800M and InternVL2-1B (with patch embeddings), and
-  Mamba2-130M's training refused on the card (K4 has no backward);
+  Granite-3.0-3B-A800M and InternVL2-1B (with patch embeddings), and 5 of
+  RecurrentGemma-2B (its first local-attention layer, K3 and its backward
+  at Dh 256), and Mamba2-130M's training refused on the card (K4 has no
+  backward);
+* ``train-recurrentgemma`` — ``launch.train`` on RecurrentGemma-2B at full
+  width and depth (26 layers, bf16, 4 x 1,024 tokens a step in 2
+  microbatches, 8 steps): the loss falls, K3 forward and backward launch
+  16 times a step, every backward on the TMA route; ms a step, tok/s, peak
+  allocated bytes;
 
 then each phase's seconds, the ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
 when no card is present, when run outside a checkout of the repository, or
 when any phase fails.  Imports nothing of JAX or of the JAX package.
+
+``python3 chip_smoke.py --compare-parent DIR`` runs only ``kernel-K3-bwd``'s
+bf16 rows up to Dh 128 of the checkout at DIR (e.g. a ``git archive`` of
+the parent commit) and of this one, in turns (parent, change, change,
+parent), each with its own ``chip_smoke.py`` and package.
 """
 
 from __future__ import annotations
@@ -310,13 +326,21 @@ SSD_TOL = 2e-4                                    # tests/test_kernels.py:96-99'
 # model's attend, src/repro/models/attention.py:194).  Rows (BH, BKV, S, Dh,
 # window, dtype): Qwen2-0.5B's training shape (a microbatch of 4 x 1,024),
 # Qwen2.5-14B's heads at Dh 128, and a window of 100 at a ragged S of 1,000
-# (whole 64-key tiles masked for most rows), each in bf16 and f32
+# (whole 64-key tiles masked for most rows), and RecurrentGemma-2B's training
+# shape (10 heads, 1 KV, Dh 256, its 2,048 window past S), each in bf16 and f32
 FA_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
 FA_BWD_REPLACES = "src/repro/models/attention.py:194"
 FA_BWD_TRAIN = (4 * 14, 4 * 2, 1_024, 64, 0)
+FA_BWD_TRAIN_RG = (4 * 10, 4 * 1, 1_024, 256, 2_048)
 FA_BWD_SHAPES = [sh + (dt,) for sh in (FA_BWD_TRAIN, (4 * 40, 4 * 8, 1_024, 128, 0),
-                                       (14, 2, 1_000, 64, 100))
+                                       (14, 2, 1_000, 64, 100), FA_BWD_TRAIN_RG)
                  for dt in ("bfloat16", "float32")]
+# each CUDA kernel of a backward call, by dtype: D, dK/dV, the G-chunks' sum
+# (bf16 only), dQ
+FA_BWD_KERNELS = {"bfloat16": ("fa_bwd_delta_kernel", "fa_bwd_dkdv_bf16_kernel",
+                               "fa_bwd_sum_kernel", "fa_bwd_dq_bf16_kernel"),
+                  "float32": ("fa_bwd_delta_kernel", "fa_bwd_dkdv_f32_kernel",
+                              "fa_bwd_dq_f32_kernel")}
 # (rtol, atol as a share of the largest entry), tests/test_torch_kernels_cuda.py's
 # FA_BWD_TOL: f32 the forward's 2e-5, atol scaled since dk and dv sum S·G
 # products in another order; bf16 one bf16 step (the kernel computes in f32
@@ -332,8 +356,13 @@ TRAIN_STEPS, TRAIN_CKPT = 30, 20
 # against CPU within tests/test_torch_training.py's gradient tolerance
 # (each leaf max|d| <= 1e-4 max|g_cpu| + 1e-6) and its loss rtol 1e-5
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 256
-# arch-train: one step at published width, 2 layers, 4 x 1,024 tokens
-TRAIN_ARCHS = (MOE_ARCH, "internvl2-1b")
+# arch-train: one step at published width, 4 x 1,024 tokens, 2 layers, or 5
+# of RecurrentGemma-2B (rglru, rglru, local_attn, and the 2-layer rglru
+# tail: its first 2 would run no attention)
+TRAIN_ARCHS = {MOE_ARCH: ARCH_LAYERS, "internvl2-1b": ARCH_LAYERS, HYBRID_ARCH: 5}
+# train-recurrentgemma: full width and depth, bf16, 4 x 1,024 tokens a step
+# in 2 microbatches, 8 steps
+TRAIN_RG_BATCH, TRAIN_RG_SEQ, TRAIN_RG_MICRO, TRAIN_RG_STEPS = 4, 1_024, 2, 8
 
 
 def emit(obj) -> None:
@@ -445,7 +474,7 @@ def reset_counts() -> None:
     launches that wrote lse)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    for counts in (*_counters(), fa_ops.LSE_WRITES):
+    for counts in (*_counters(), fa_ops.LSE_WRITES, fa_ops.BWD_ROUTES):
         for name in counts:
             counts[name] = 0
 
@@ -510,7 +539,9 @@ def device_ms_by_kernel(torch, fn, kernels, calls: int = 10) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # CPU and CUDA both: late in a run, a CUDA-only session recorded no
+    # kernel (every row 0.0), where sessions with both still did
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -569,7 +600,7 @@ def phase_build(torch) -> dict:
     emit({"phase": "build", "kernel": "flash_attention_bwd",
           "dynamic_smem_bytes": {
               name: {f"dh{dh}": fa_ops.bwd_smem_bytes(dh, dtype=getattr(torch, name))
-                     for dh in (40, 64, 128)} for name in ("float32", "bfloat16")}})
+                     for dh in (40, 64, 128, 256)} for name in ("float32", "bfloat16")}})
     emit({"phase": "build", "kernel": "ssd_scan",
           "dynamic_smem_bytes": {f"n{n}": ssd_ops.smem_bytes(n) for n in (16, 128, 256)}})
     names = " ".join(k["symbol"] for k in kernels)
@@ -578,7 +609,7 @@ def phase_build(torch) -> dict:
                            "flash_attention_kernel", "flash_attention_bf16_kernel",
                            "fa_bwd_delta_kernel", "fa_bwd_dq_f32_kernel",
                            "fa_bwd_dkdv_f32_kernel", "fa_bwd_dq_bf16_kernel",
-                           "fa_bwd_dkdv_bf16_kernel",
+                           "fa_bwd_dkdv_bf16_kernel", "fa_bwd_sum_kernel",
                            *(f"ssd_scan_{p}_kernel" for p in ssd_ops.PHASES),
                            "lockstep_chain_kernel", "grid_lockstep_kernel")
                if n not in names]
@@ -2139,7 +2170,8 @@ def phase_kernel_k3_bwd(torch, smi: str) -> dict:
     through ``torch.autograd.grad`` on a kept graph (its forward outside the
     timed region), and the forward's without and with lse (the serving and
     the training launch); each row's worst error as a share of the
-    tolerance."""
+    tolerance, each CUDA kernel's device ms, and the route taken (bf16 rows,
+    all of whose Dh are multiples of 8, must take TMA's)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import lse_ref, mha_bwd_ref
 
@@ -2153,7 +2185,9 @@ def phase_kernel_k3_bwd(torch, smi: str) -> dict:
         q, k, v, do = (torch.randn((n, s, dh), generator=gen, device=dev).to(dtype)
                        for n in (bh, bkv, bkv, bh))
         out, lse = fa_ops._forward(q, k, v, window, with_lse=True)
+        routes = dict(fa_ops.BWD_ROUTES)
         got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window)
+        route = [r for r, n in fa_ops.BWD_ROUTES.items() if n != routes[r]]
         again = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window)
         want = mha_bwd_ref(q, k, v, out, do, lse, window=window)
         lse_err = float((lse - lse_ref(q, k, window=window)).abs().max())
@@ -2165,7 +2199,8 @@ def phase_kernel_k3_bwd(torch, smi: str) -> dict:
             diff = (g - w).abs()
             errs[name] = float(diff.max())
             shares[name] = float((diff / (share * w.abs().max() + rtol * w.abs())).max())
-        ok = same and max(shares.values()) <= 1.0 and lse_err <= 1e-5
+        want_route = ["f32"] if dtype_name == "float32" else ["tma"]
+        ok = same and max(shares.values()) <= 1.0 and lse_err <= 1e-5 and route == want_route
         q4, k4, v4 = (t[None].detach().requires_grad_(True) for t in (q, k, v))
         if 0 < window < s:
             idx = torch.arange(s, device=dev)
@@ -2190,7 +2225,11 @@ def phase_kernel_k3_bwd(torch, smi: str) -> dict:
                    q, k, v, window=window)),
                "forward_lse_ms": cuda_ms(torch, lambda: fa_ops._forward(
                    q, k, v, window, with_lse=True)),
-               "bound_ms": bound_ms, "bound_by": by, "card": smi}
+               "bound_ms": bound_ms, "bound_by": by, "route": route,
+               "device_ms_by_kernel": device_ms_by_kernel(
+                   torch, lambda: fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window),
+                   FA_BWD_KERNELS[dtype_name], calls=5),
+               "card": smi}
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         emit(row)
         results[(bh, bkv, s, dh, window, dtype_name)] = row
@@ -2316,6 +2355,7 @@ def phase_train_qwen2(torch, smi: str) -> dict:
     second = train(cfg, ckpt_dir=str(root / "b"), **kw)
     t2 = time.perf_counter()
     counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+    routes = dict(fa_ops.BWD_ROUTES)
     lse_writes = fa_ops.LSE_WRITES["flash_attention"]
     same_params = all(torch.equal(a, b) for a, b in zip(first.params.parameters(),
                                                         second.params.parameters()))
@@ -2336,7 +2376,8 @@ def phase_train_qwen2(torch, smi: str) -> dict:
                            "first": first.step_s[0] * 1e3},
            "tokens_per_s": first.tokens_per_s,
            "peak_allocated_bytes": max(first.peak_bytes, second.peak_bytes),
-           "launches": counts, "lse_writes": lse_writes, "steps_run": steps_run,
+           "launches": counts, "bwd_routes": routes, "lse_writes": lse_writes,
+           "steps_run": steps_run,
            "first_run_s": t1 - t0, "restart_run_s": t2 - t1,
            "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
            "card": smi}
@@ -2358,28 +2399,84 @@ def phase_train_qwen2(torch, smi: str) -> dict:
         problems.append(f"restart not bit-exact: {row['restart_bit_exact']}")
     if counts != {"flash_attention": want, "flash_attention_bwd": want} or lse_writes != want:
         problems.append(f"K3 launches {counts}, lse writes {lse_writes}, want {want} each")
+    if routes != {"tma": want, "copy": 0, "f32": 0}:
+        problems.append(f"backward routes {routes}, want {want} on TMA's")
     if problems:
         raise AssertionError(f"train-qwen2: {problems}")
     return row
 
 
+def phase_train_recurrentgemma(torch, smi: str) -> dict:
+    """``launch.train.train`` on RecurrentGemma-2B at full width and depth
+    (26 layers, 8 of them local attention at Dh 256; bf16, random weights
+    from SEED): TRAIN_RG_STEPS steps of TRAIN_RG_BATCH x TRAIN_RG_SEQ tokens
+    in TRAIN_RG_MICRO microbatches, no checkpoint.  The loss must fall (the
+    mean of the last 3 below the first), and K3 forward (writing lse) and
+    backward must each launch once per attention layer and microbatch a
+    step, every backward on the TMA route; counts set to 0 just before the
+    run and read just after."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.train import train
+
+    cfg = get_config(HYBRID_ARCH)
+    attn = kernel_layers(cfg, "flash_attention")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train(cfg, steps=TRAIN_RG_STEPS, batch=TRAIN_RG_BATCH, seq=TRAIN_RG_SEQ,
+                microbatches=TRAIN_RG_MICRO, seed=SEED, device=DEVICE, log=lambda line: None)
+    run_s = time.perf_counter() - t0
+    counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+    routes = dict(fa_ops.BWD_ROUTES)
+    lse_writes = fa_ops.LSE_WRITES["flash_attention"]
+    want = attn * TRAIN_RG_MICRO * TRAIN_RG_STEPS
+    step_ms = sorted(x * 1e3 for x in res.step_s[1:])           # the first step warms up
+    row = {"phase": "train-recurrentgemma", "arch": HYBRID_ARCH, "dtype": cfg.dtype,
+           "layers": cfg.n_layers, "attention_layers": attn,
+           "params": sum(p.numel() for p in res.params.parameters()),
+           "batch": TRAIN_RG_BATCH, "seq": TRAIN_RG_SEQ, "microbatches": TRAIN_RG_MICRO,
+           "steps": TRAIN_RG_STEPS, "losses": res.losses,
+           "ms_per_step": {"median": step_ms[len(step_ms) // 2], "min": step_ms[0],
+                           "first": res.step_s[0] * 1e3},
+           "tokens_per_s": res.tokens_per_s, "peak_allocated_bytes": res.peak_bytes,
+           "launches": counts, "bwd_routes": routes, "lse_writes": lse_writes, "run_s": run_s,
+           "card": smi}
+    emit(row)
+    del res
+    torch.cuda.empty_cache()
+    problems = []
+    if not np.mean(row["losses"][-3:]) < row["losses"][0]:
+        problems.append("the loss did not fall")
+    if counts != {"flash_attention": want, "flash_attention_bwd": want} or lse_writes != want:
+        problems.append(f"K3 launches {counts}, lse writes {lse_writes}, want {want} each")
+    if routes != {"tma": want, "copy": 0, "f32": 0}:
+        problems.append(f"backward routes {routes}, want {want} on TMA's")
+    if problems:
+        raise AssertionError(f"train-recurrentgemma: {problems}")
+    return row
+
+
 def phase_arch_train(torch, smi: str) -> dict:
-    """One training step at published width, cut to 2 layers, bf16, of each
-    of TRAIN_ARCHS (Granite's MoE gradients; InternVL2's patch embeddings
-    and prefix mask), 4 x 1,024 tokens: a finite loss near log V, a finite
-    nonzero gradient norm, K3 forward and backward once a layer; then
+    """One training step at published width, cut to TRAIN_ARCHS' layers,
+    bf16, of each of them (Granite's MoE gradients; InternVL2's patch
+    embeddings and prefix mask; RecurrentGemma-2B's local attention at Dh
+    256 with its RG-LRU layers), 4 x 1,024 tokens: a finite loss near log V,
+    a finite nonzero gradient norm, K3 forward and backward once an
+    attention layer, every backward on the TMA route; then
     Mamba2-130M, whose training on the card through the launcher must raise
     from K4's wrapper (K4 has no backward) before any K4 launch."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.train import train
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_loop import batch_to, make_train_step
 
     rows, problems = {}, []
-    for arch in TRAIN_ARCHS:
-        cfg = dataclasses.replace(get_config(arch), n_layers=ARCH_LAYERS)
+    for arch, layers in TRAIN_ARCHS.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
         params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
         params.requires_grad_(True)
         data = SyntheticLM(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH, seed=SEED,
@@ -2394,19 +2491,21 @@ def phase_arch_train(torch, smi: str) -> dict:
         loss = float(metrics["loss"])
         ms = (time.perf_counter() - t0) * 1e3
         counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+        routes = dict(fa_ops.BWD_ROUTES)
         gnorm = float(metrics["grad_norm"])
         row = {"phase": "arch-train", "arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
                "params": sum(p.numel() for p in params.parameters()),
                "batch": SERVE_BATCH, "seq": SERVE_PROMPT,
                "prefix_embeds": cfg.n_prefix if cfg.frontend else 0,
                "loss": loss, "log_vocab": float(np.log(cfg.vocab_size)), "grad_norm": gnorm,
-               "step_ms": ms, "launches": counts, "card": smi}
+               "step_ms": ms, "launches": counts, "bwd_routes": routes, "card": smi}
         emit(row)
         rows[arch] = row
         n = kernel_layers(cfg, "flash_attention")
         if not (np.isfinite(loss) and 0.1 * row["log_vocab"] < loss < 3 * row["log_vocab"]
-                and np.isfinite(gnorm) and gnorm > 0
-                and counts == {"flash_attention": n, "flash_attention_bwd": n}):
+                and np.isfinite(gnorm) and gnorm > 0 and n >= 1
+                and counts == {"flash_attention": n, "flash_attention_bwd": n}
+                and routes == {"tma": n, "copy": 0, "f32": 0}):
             problems.append(arch)
         del params, batch, metrics
         torch.cuda.empty_cache()
@@ -2495,6 +2594,7 @@ def main() -> int:
         return out
 
     k3 = run("kernel-K3", phase_kernel_k3, torch, smi)
+    k3_bwd = run("kernel-K3-bwd", phase_kernel_k3_bwd, torch, smi)
     run("lm-parity", phase_lm_parity, torch, smi, DENSE_ARCH, "flash_attention")
     serving = {"flash_attention": serving_path(DENSE_ARCH, "flash_attention", "")}
     run("arch-configs", phase_arch_configs, torch, smi, k3)
@@ -2515,10 +2615,10 @@ def main() -> int:
     run("lm-parity-mamba", phase_lm_parity, torch, smi, SSM_ARCH, "ssd_scan",
         "lm-parity-mamba")
     serving["ssd_scan"] = serving_path(SSM_ARCH, "ssd_scan", "-mamba")
-    k3_bwd = run("kernel-K3-bwd", phase_kernel_k3_bwd, torch, smi)
     run("train-parity", phase_train_parity, torch, smi)
     trained = run("train-qwen2", phase_train_qwen2, torch, smi)
     run("arch-train", phase_arch_train, torch, smi)
+    trained_rg = run("train-recurrentgemma", phase_train_recurrentgemma, torch, smi)
     emit({"phase": "seconds", **seconds})
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -2571,6 +2671,7 @@ def main() -> int:
         "shape_window": dict(zip(("bh", "bkv", "s", "dh", "window"), FA_WINDOWED[0][:5]),
                              dtype="bfloat16")})
     row, big = k3_bwd[FA_BWD_TRAIN + ("bfloat16",)], k3_bwd[FA_BWD_SHAPES[2]]
+    rg = k3_bwd[FA_BWD_TRAIN_RG + ("bfloat16",)]
     summary.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
         "replaces": FA_BWD_REPLACES,
@@ -2581,9 +2682,16 @@ def main() -> int:
         "library_ms": row["library_ms"], "worst_to_tolerance": row["worst_to_tolerance"],
         "bit_identical": row["bit_identical"],
         "shape": dict(zip(("bh", "bkv", "s", "dh"), FA_BWD_TRAIN), dtype="bfloat16"),
+        "device_ms_by_kernel": row["device_ms_by_kernel"],
         **{f"{key}_dh128": big[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
         "shape_dh128": dict(zip(("bh", "bkv", "s", "dh"), FA_BWD_SHAPES[2]),
+                            dtype="bfloat16"),
+        # RecurrentGemma-2B's training shape (Dh 256) and its training run
+        "launches_train_recurrentgemma": trained_rg["launches"]["flash_attention_bwd"],
+        **{f"{key}_dh256": rg[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")},
+        "shape_dh256": dict(zip(("bh", "bkv", "s", "dh", "window"), FA_BWD_TRAIN_RG),
                             dtype="bfloat16")})
     row = k4[(SSD_SERVING, False)]
     summary.append({
@@ -2610,5 +2718,46 @@ def main() -> int:
     return 0
 
 
+def k3_bwd_rows(root: Path) -> int:
+    """``kernel-K3-bwd``'s bf16 rows up to Dh 128 (those PR 23's backward
+    takes) run by the ``chip_smoke.py`` and the package of the checkout at
+    ``root``: one side of the parent-against-change comparison."""
+    import importlib.util
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root / "src"))
+    spec = importlib.util.spec_from_file_location("chip_smoke_at_root", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.FA_BWD_SHAPES = [sh for sh in smoke.FA_BWD_SHAPES
+                           if sh[-1] == "bfloat16" and sh[3] <= 128]
+    smoke.phase_kernel_k3_bwd(torch, smoke.nvidia_smi_line())
+    return 0
+
+
+def compare_parent(parent: Path) -> int:
+    """K3's backward of the checkout at ``parent`` and of this one on one
+    card, in turns (parent, change, change, parent), one process each (both
+    packages are named ``repro_torch``)."""
+    for tree, root in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                       ("parent", parent)):
+        emit({"phase": "k3-bwd-compare", "tree": tree, "root": str(root)})
+        rc = subprocess.run([sys.executable, __file__, "--k3-bwd-rows", str(root)],
+                            timeout=600).returncode
+        if rc:
+            return rc
+    return 0
+
+
 if __name__ == "__main__":
+    # no arguments: the whole run; `--compare-parent DIR`: K3's backward of
+    # the checkout at DIR (e.g. a `git archive` of the parent) beside this one
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare-parent":
+        sys.exit(compare_parent(Path(sys.argv[2]).resolve()))
+    if len(sys.argv) == 3 and sys.argv[1] == "--k3-bwd-rows":
+        sys.exit(k3_bwd_rows(Path(sys.argv[2]).resolve()))
     sys.exit(main())

@@ -16,59 +16,92 @@
 // key <= query - window) gets P = 0 explicitly: no exponent of -1e30 is
 // ever taken, so a window tile that is fully masked for a row contributes
 // exact zeros (the forward's NaN of PERF.md cannot arise here), and a ragged
-// S is masked like the forward's.  Dh up to 128; the wrapper raises for more.
-//
-// Three kernels a call, on the caller's stream:
-//  (a) fa_bwd_delta_kernel: D = rowsum(dO o O) in f32, one warp a row.
-//  (b) dK, dV: one block per (kv row, 64-key tile).  It loops over the G
-//      query heads of its group and, for each, over the 64-query tiles that
-//      can see its keys (from the diagonal tile to the last one the window
-//      reaches), recomputes P and dS, and accumulates dK and dV in f32
-//      registers; it writes them once.  GQA's sum over the group is thus a
-//      loop in one block in a fixed order, with no atomics: two runs give the
-//      same bits.
-//  (c) dQ: one block per (q row, 64-query tile), over the key tiles the tile
-//      sees (the forward's loop), accumulating dQ in f32 registers.
-// (b) and (c) both recompute s and dP: 7 tile products where 5 would do.
-// FlashAttention-2 computes dQ inside (b) with atomics, whose order of
-// addition changes from run to run.
-//
-// bf16 (the training dtype): mma.sync m16n8k16 with f32 accumulation, 4
-// warps of 16 rows, tiles staged as bf16 in shared memory with a 16-byte row
-// pad (the forward's staging, cp.async where rows are 16-byte aligned).
-// Products of bf16 inputs are exact in f32.  The f32 P and dS enter the
-// products dV, dK and dQ as hi/lo bf16 pairs (the forward's split of P), so
-// each keeps ~16 bits; the kernel then computes in f32 up to summation
-// order and rounds dq, dk and dv to bf16 once, as mha_bwd_ref does.  In (b)
-// each warp owns 16 keys: S^T = K Q^T and dP^T = V dO^T come out with keys
-// as rows, so P^T and dS^T are already A fragments for P^T dO and dS^T Q
-// (ldmatrix.trans on the dO and Q tiles), and a 64-query tile is taken in
-// two passes of 32 queries, which holds the scores to 32 floats a thread
-// beside the 2 x 64 of dK and dV at Dh 128.  Up to Dh 64 the warp's K and V
-// fragments ((b)) or q and dO fragments ((c)) live in registers; above, they
-// are read from shared memory each tile.  No double buffering: each tile is
-// staged, waited for, then computed.
-//
-// f32: CUDA cores, 256 threads as a 16 x 16 grid (the forward's f32
-// layout): each thread owns 4 rows and 4 columns of a tile's scores and 4
-// rows by DN columns of the accumulators; P, dS (and P^T, dS^T) pass to the
-// second products through shared tiles with a +1 row pad.
+// S is masked like the forward's.  Any Dh up to 256, as the forward.
 //
 // Bound on an H100 SXM: operations.  The gradient needs five products over
 // the visible (query, key) pairs, 2 Dh operations each (QK^T, dO V^T, P^T dO,
 // dS K, dS^T Q; 2.5x the forward's two); at Qwen2-0.5B's training shape
 // (BH 56, BKV 8, S 1,024, Dh 64) that is ~18.8 GFLOP, 19 us at the 989
 // TFLOP/s bf16 peak, against ~2.3 us to move q, k, v, o, dO, lse in and
-// dq, dk, dv out at 3.35 TB/s.  This simple design issues 7 products (10
-// with the hi/lo halves), stages every tile synchronously, and runs (b) on
-// BKV x S/64 blocks (128 at that shape): later work (wgmma, TMA, dQ by a
-// deterministic second pass or split over more blocks) is in ROADMAP.
+// dq, dk, dv out at 3.35 TB/s.  So the design keeps the tensor cores fed.
 //
-// C interface (loaded with ctypes): fa_backward launches (a), (b) and (c)
-// on the given stream of the given device, leaves the caller's current
-// device as it found it, does not synchronise, and returns a cudaError_t
-// (0 on success).
+// bf16 (the training dtype), four kernels a call on the caller's stream:
+//  (a) fa_bwd_delta_kernel: D = rowsum(dO o O) in f32 (8 lanes a row, 16-byte
+//      loads), written beside lse log2 e into rows padded to 64 queries, so
+//      that one TMA box brings both for a query tile.
+//  (b) fa_bwd_dkdv_bf16_kernel<NP>: dK, dV of one kv row's 64-key tile
+//      (two tiles a block, kt and T - 1 - kt: the causal work of the pair is
+//      T + 1 query tiles whatever kt is, so every block does the same work)
+//      over one chunk of the G query heads of its group.  The chunk count is
+//      the divisor of G whose grid takes the fewest waves x tiles a block
+//      (Qwen2-0.5B's G 7: 7 chunks, 448 blocks of 17 tiles on 2 x 132
+//      slots); with more than one, each block writes its chunk's f32
+//      partial sums.
+//  (s) fa_bwd_sum_kernel: dK, dV = the chunks' partials summed in chunk
+//      order, rounded to bf16 (skipped with one chunk: (b) then writes bf16
+//      itself).  A fixed order and no atomics anywhere: two calls give the
+//      same bits.  The partials are 2 x BH x S x Dh f32 (29 MB at Qwen2's
+//      shape: one pass at HBM rate); a per-tile counter that orders in-place
+//      adds (FlashAttention-3's deterministic mode) would serialise the G
+//      blocks of a tile instead.
+//  (c) fa_bwd_dq_bf16_kernel<NP>: dQ of one (q row, 64-query tile), the
+//      heaviest tiles first, over the key tiles the forward visits: S and
+//      dP are recomputed (7 products where 5 would do) so that dQ needs no
+//      atomics and no dS scratch (~59 MB at Qwen2's shape).
+//  Tiles stream through a ring of stages in shared memory (4 deep at Dh <=
+//  64; above, 2, or 3 in (b) at Dh 129-192: what two blocks an SM, or one
+//  at Dh > 128, leave room for):
+//  TMA loads 64 x 64 boxes swizzled by 128 B (zero-filled past S and Dh)
+//  against a stage's "full" mbarrier, the consumers wait on it and release
+//  the stage on its "empty" one, and warp 0 refills a stage as soon as
+//  every warp has released it, so tiles i + 1.. load while tile i computes.
+//  Where TMA cannot read the rows (Dh % 8 != 0 or an input not 16-byte
+//  aligned) that warp copies the tiles into the same layout (the "copy"
+//  route; the wrapper counts the routes).  The loads are issued from a
+//  consumer warp, not a producer warp: registers go to warps in groups of
+//  four, so a producer warp costs a warpgroup's registers, and ptxas holds
+//  every warp to the launch budget whatever setmaxnreg asks (measured: the
+//  same spills with the consumers' setmaxnreg at 168 and at 240), which a
+//  producer would cut to 168 a thread, below dK's 244 at Dh 256.
+//  Every product runs on wgmma m64n64k16 (bf16 in, f32 accumulate):
+//   - (b): S^T = K Q^T and dP^T = V dO^T with K and V (A) and Q and dO (B)
+//     K-major in shared memory; P^T and dS^T stay in the accumulator
+//     registers, whose layout is the A-register layout of the next wgmma,
+//     for dV += P^T dO and dK += dS^T Q with dO and Q as MN-major B (the
+//     transpose bit).  Up to Dh 128 one warpgroup holds dK and dV (2 NP x
+//     32 f32 a thread) at two blocks an SM; above, that would be 256 + 64
+//     f32, so warpgroup 0 computes dV and warpgroup 1 dK from the same
+//     tiles, both computing S^T (S^T twice a tile).
+//   - (c): S = Q K^T and dP = dO V^T, then dQ += dS K, K as MN-major B;
+//     above Dh 128 two warpgroups, each the dQ of alternate 64-column
+//     panels, both computing S and dP.
+//  Registers a thread (-Xptxas -v): (b) 225 / 255 / 196 / 227 at NP 1-4,
+//  (c) 134 / 160 / 160 / 160, no spill but (b) at NP 2 (Dh 65-128): its 2 x
+//  64 accumulators beside S^T and dP^T fill the 255 a thread can have, and
+//  ptxas spills 16 bytes (24 B stored, 28 B loaded a thread).  The dV/dK
+//  split that removes it measured slower (0.757 ms against 0.527 at
+//  Qwen2.5-14B's heads).
+//  Every branch around a wgmma is on a warp-uniform value (the warpgroup
+//  index broadcast by __shfl_sync): ptxas serialises wgmmas under a branch
+//  it cannot prove uniform.  Products of bf16 inputs are exact in f32.  The
+//  f32 P and dS enter the products dV, dK and dQ as hi/lo bf16 pairs (the
+//  forward's split of P), so each keeps ~16 bits; the kernel then computes
+//  in f32 up to summation order and rounds dq, dk and dv to bf16 once, as
+//  mha_bwd_ref does.  The split costs 10 products where the bound counts 5.
+//
+// f32 (the parity dtype): CUDA cores, 256 threads as a 16 x 16 grid (the
+// forward's f32 layout), (a) then (b) with the G heads looped in the block
+// and (c); each thread owns R/16 rows and R/16 columns of a tile's scores
+// and R/16 rows by DN columns of the accumulators; P, dS (and P^T, dS^T) pass
+// to the second products through shared tiles with a +1 row pad.  Tiles of
+// R = 64 rows up to Dh 128 and 32 above, so that four tiles of Dh 256 fit.
+//
+// C interface (loaded with ctypes): fa_backward launches the kernels on the
+// given stream of the given device, leaves the caller's current device as
+// it found it, does not synchronise, and returns a cudaError_t (0 on
+// success).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -77,21 +110,29 @@
 #include <cstdint>
 
 #include "fa_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int MAX_BWD_DH = 128;
-constexpr int DELTA_ROWS = THREADS / 32;    // rows of D a block, one warp each
+constexpr int MAX_BWD_DH = 256;
+enum Route { ROUTE_F32 = 0, ROUTE_TMA = 1, ROUTE_COPY = 2 };
 
 // Whether query `qry` sees key `key` (absolute positions) in the forward.
 __device__ __forceinline__ bool visible(int qry, int key, int S, int window) {
   return key <= qry && qry < S && (window == 0 || key + window > qry);
 }
 
-// The last query tile that sees a key of the tile starting at k0.
+// The last query tile of R rows that sees a key of the tile starting at k0.
+template <int R>
 __device__ __forceinline__ int last_q_tile(int k0, int S, int window) {
-  const int last = (S - 1) / BQ;
-  return window > 0 ? min(last, (k0 + TK - 1 + window - 1) / BQ) : last;
+  const int last = (S - 1) / R;
+  return window > 0 ? min(last, (k0 + R - 1 + window - 1) / R) : last;
+}
+
+// The first key tile of R keys that the query tile starting at q0 sees.
+template <int R>
+__device__ __forceinline__ int first_k_tile(int q0, int window) {
+  return window > 0 ? max(0, q0 - window + 1) / R : 0;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -99,50 +140,92 @@ __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 // -- (a) D = rowsum(dO o O) ---------------------------------------------------
 
-template <typename T>
+// f32: D (bh, S).  bf16: ld (bh, 2, sp) with sp = S rounded up to 64: row
+// 2 b holds lse log2 e, row 2 b + 1 holds D, zeros past S, so that TMA
+// loads both for a 64-query tile in one box.  LANES lanes an item (a row
+// and query): 8 with 16-byte loads (bf16 rows of 16-byte multiples), else
+// 32.
+template <typename T, int LANES>
 __global__ void __launch_bounds__(THREADS)
 fa_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                    float* __restrict__ delta, int rows, int dh) {
-  const int row = blockIdx.x * DELTA_ROWS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;                  // the whole warp: one row a warp
-  const T* orow = o + (size_t)row * dh;
-  const T* drow = dout + (size_t)row * dh;
+                    const float* __restrict__ lse, float* __restrict__ out, int bh, int S,
+                    int sp, int dh) {
+  const int cols = lse == nullptr ? S : sp;   // queries a row: f32 writes D only
+  const long long item = ((long long)blockIdx.x * THREADS + threadIdx.x) / LANES;
+  const int l = threadIdx.x % LANES;
+  const bool live = item < (long long)bh * cols;
+  const int b = live ? (int)(item / cols) : 0, i = live ? (int)(item % cols) : 0;
   float acc = 0.f;
-  for (int c = lane; c < dh; c += 32) acc = fmaf(to_f32(drow[c]), to_f32(orow[c]), acc);
+  if (live && i < S) {
+    const T* orow = o + ((size_t)b * S + i) * dh;
+    const T* drow = dout + ((size_t)b * S + i) * dh;
+    if constexpr (LANES == 8) {
+      for (int c = 8 * l; c < dh; c += 64) {
+        const uint4 x = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 y = *reinterpret_cast<const uint4*>(drow + c);
+        const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+        for (int e = 0; e < 4; ++e) {
+          const float2 xf = __bfloat1622float2(xp[e]), yf = __bfloat1622float2(yp[e]);
+          acc = fmaf(yf.x, xf.x, fmaf(yf.y, xf.y, acc));
+        }
+      }
+    } else {
+      for (int c = l; c < dh; c += LANES) acc = fmaf(to_f32(drow[c]), to_f32(orow[c]), acc);
+    }
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (!live || l != 0) return;
+  if (lse == nullptr) {
+    out[(size_t)b * S + i] = acc;
+  } else {
+    out[(size_t)(2 * b) * sp + i] = i < S ? lse[(size_t)b * S + i] * LOG2E : 0.f;
+    out[(size_t)(2 * b + 1) * sp + i] = acc;
+  }
 }
 
 // -- f32: CUDA cores -----------------------------------------------------------
 
-template <int DN>
+// Stage `rows` (<= R) rows of a contiguous (rows, dh) slab into
+// tile[R][ld] times `mul`, zero-filling rows past the slab.
+template <int R>
+__device__ __forceinline__ void stage_rows(float* __restrict__ tile, const float* __restrict__ src,
+                                           int rows, int dh, int ld, float mul) {
+  for (int e = threadIdx.x; e < R * dh; e += THREADS) {
+    const int r = e / dh, c = e - r * dh;
+    tile[r * ld + c] = r < rows ? src[(size_t)r * dh + c] * mul : 0.f;
+  }
+}
+
+template <int DN, int R>
 __global__ void __launch_bounds__(THREADS)
 fa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dq, int S, int dh, int group, float scale,
                      int window) {
+  constexpr int RM = R / TY, RN = R / TX, PL = R + 1;
   extern __shared__ float smem[];
   const int ld = dh + 1;
-  float* qs = smem;                   // [BQ][ld], q * scale (the forward's s)
-  float* dos = qs + BQ * ld;          // [BQ][ld]
-  float* ks = dos + BQ * ld;          // [TK][ld]
-  float* vs = ks + TK * ld;           // [TK][ld]
-  float* dss = vs + TK * ld;          // [BQ][PLD], dS of one tile
+  float* qs = smem;                   // [R][ld], q * scale (the forward's s)
+  float* dos = qs + R * ld;           // [R][ld]
+  float* ks = dos + R * ld;           // [R][ld]
+  float* vs = ks + R * ld;            // [R][ld]
+  float* dss = vs + R * ld;           // [R][PL], dS of one tile
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tiles first
-  const int q0 = qt * BQ;
+  const int q0 = qt * R;
   const float* kb = k + (size_t)(bh / group) * S * dh;
   const float* vb = v + (size_t)(bh / group) * S * dh;
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
 
-  stage(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, scale);
-  stage(dos, dout + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, 1.f);
-  float rl[TM], rd[TM], acc[TM][DN];
+  stage_rows<R>(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, scale);
+  stage_rows<R>(dos, dout + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, 1.f);
+  float rl[RM], rd[RM], acc[RM][DN];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+  for (int i = 0; i < RM; ++i) {
     const int row = q0 + ty + TY * i;
     rl[i] = row < S ? lse[(size_t)bh * S + row] : 0.f;
     rd[i] = row < S ? delta[(size_t)bh * S + row] : 0.f;
@@ -150,65 +233,65 @@ fa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
   }
 
-  for (int t = first_tile(q0, window); t <= qt; ++t) {
-    const int k0 = t * TK;
-    stage(ks, kb + (size_t)k0 * dh, S - k0, dh, ld, 1.f);
-    stage(vs, vb + (size_t)k0 * dh, S - k0, dh, ld, 1.f);
+  for (int t = first_k_tile<R>(q0, window); t <= qt; ++t) {
+    const int k0 = t * R;
+    stage_rows<R>(ks, kb + (size_t)k0 * dh, S - k0, dh, ld, 1.f);
+    stage_rows<R>(vs, vb + (size_t)k0 * dh, S - k0, dh, ld, 1.f);
     __syncthreads();
 
-    float s[TM][TN], dp[TM][TN];
+    float s[RM][RN], dp[RM][RN];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < RN; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int d = 0; d < dh; ++d) {
-      float a[TM], e[TM], b[TN], c[TN];
+      float a[RM], e[RM], b[RN], c[RN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
+      for (int i = 0; i < RM; ++i) {
         a[i] = qs[(ty + TY * i) * ld + d];
         e[i] = dos[(ty + TY * i) * ld + d];
       }
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
+      for (int j = 0; j < RN; ++j) {
         b[j] = ks[(tx + TX * j) * ld + d];
         c[j] = vs[(tx + TX * j) * ld + d];
       }
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
+        for (int j = 0; j < RN; ++j) {
           s[i][j] = fmaf(a[i], b[j], s[i][j]);
           dp[i][j] = fmaf(e[i], c[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
+      for (int j = 0; j < RN; ++j) {
         const int row = q0 + ty + TY * i, key = k0 + tx + TX * j;
         const float p = visible(row, key, S, window) ? expf(s[i][j] - rl[i]) : 0.f;
-        dss[(ty + TY * i) * PLD + tx + TX * j] = p * (dp[i][j] - rd[i]);
+        dss[(ty + TY * i) * PL + tx + TX * j] = p * (dp[i][j] - rd[i]);
       }
     __syncthreads();   // dss complete
 
-    const int keys = min(TK, S - k0);
+    const int keys = min(R, S - k0);
     for (int c = 0; c < keys; ++c) {
-      float ds[TM];
+      float ds[RM];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) ds[i] = dss[(ty + TY * i) * PLD + c];
+      for (int i = 0; i < RM; ++i) ds[i] = dss[(ty + TY * i) * PL + c];
 #pragma unroll
       for (int j = 0; j < DN; ++j) {
         const int col = tx + TX * j;
         const float kv = col < dh ? ks[c * ld + col] : 0.f;
 #pragma unroll
-        for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(ds[i], kv, acc[i][j]);
+        for (int i = 0; i < RM; ++i) acc[i][j] = fmaf(ds[i], kv, acc[i][j]);
       }
     }
     __syncthreads();   // the next tile overwrites ks, vs and dss
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+  for (int i = 0; i < RM; ++i) {
     const int row = q0 + ty + TY * i;
     if (row >= S) continue;
     float* out = dq + ((size_t)bh * S + row) * dh;
@@ -220,91 +303,92 @@ fa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DN>
+template <int DN, int R>
 __global__ void __launch_bounds__(THREADS)
 fa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        float* __restrict__ dk, float* __restrict__ dv, int S, int dh,
                        int group, float scale, int window) {
+  constexpr int RM = R / TY, RN = R / TX, PL = R + 1;
   extern __shared__ float smem[];
   const int ld = dh + 1;
-  float* ks = smem;                   // [TK][ld]
-  float* vs = ks + TK * ld;           // [TK][ld]
-  float* qs = vs + TK * ld;           // [BQ][ld], q * scale: dK needs no rescale
-  float* dos = qs + BQ * ld;          // [BQ][ld]
-  float* ps = dos + BQ * ld;          // [TK][PLD], P^T of one tile
-  float* dss = ps + TK * PLD;         // [TK][PLD], dS^T of one tile
-  float* lses = dss + TK * PLD;       // [BQ]
-  float* dels = lses + BQ;            // [BQ]
+  float* ks = smem;                   // [R][ld]
+  float* vs = ks + R * ld;            // [R][ld]
+  float* qs = vs + R * ld;            // [R][ld], q * scale: dK needs no rescale
+  float* dos = qs + R * ld;           // [R][ld]
+  float* ps = dos + R * ld;           // [R][PL], P^T of one tile
+  float* dss = ps + R * PL;           // [R][PL], dS^T of one tile
+  float* lses = dss + R * PL;         // [R]
+  float* dels = lses + R;             // [R]
   const int bkv = blockIdx.x;
-  const int k0 = blockIdx.y * TK;
+  const int k0 = blockIdx.y * R;
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
 
-  stage(ks, k + ((size_t)bkv * S + k0) * dh, S - k0, dh, ld, 1.f);
-  stage(vs, v + ((size_t)bkv * S + k0) * dh, S - k0, dh, ld, 1.f);
-  float adk[TM][DN], adv[TM][DN];
+  stage_rows<R>(ks, k + ((size_t)bkv * S + k0) * dh, S - k0, dh, ld, 1.f);
+  stage_rows<R>(vs, v + ((size_t)bkv * S + k0) * dh, S - k0, dh, ld, 1.f);
+  float adk[RM][DN], adv[RM][DN];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < DN; ++j) adk[i][j] = adv[i][j] = 0.f;
 
-  const int qt_last = last_q_tile(k0, S, window);
+  const int qt_last = last_q_tile<R>(k0, S, window);
   for (int h = 0; h < group; ++h) {
     const int bh = bkv * group + h;
     for (int qt = blockIdx.y; qt <= qt_last; ++qt) {
-      const int q0 = qt * BQ;
-      stage(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, scale);
-      stage(dos, dout + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, 1.f);
-      for (int r = threadIdx.x; r < BQ; r += THREADS) {
+      const int q0 = qt * R;
+      stage_rows<R>(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, scale);
+      stage_rows<R>(dos, dout + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, 1.f);
+      for (int r = threadIdx.x; r < R; r += THREADS) {
         lses[r] = q0 + r < S ? lse[(size_t)bh * S + q0 + r] : 0.f;
         dels[r] = q0 + r < S ? delta[(size_t)bh * S + q0 + r] : 0.f;
       }
       __syncthreads();
 
-      float s[TM][TN], dp[TM][TN];    // keys ty + 16 i, queries tx + 16 j
+      float s[RM][RN], dp[RM][RN];    // keys ty + 16 i, queries tx + 16 j
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < RN; ++j) s[i][j] = dp[i][j] = 0.f;
       for (int d = 0; d < dh; ++d) {
-        float a[TM], e[TM], b[TN], c[TN];
+        float a[RM], e[RM], b[RN], c[RN];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
+        for (int i = 0; i < RM; ++i) {
           a[i] = ks[(ty + TY * i) * ld + d];
           e[i] = vs[(ty + TY * i) * ld + d];
         }
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
+        for (int j = 0; j < RN; ++j) {
           b[j] = qs[(tx + TX * j) * ld + d];
           c[j] = dos[(tx + TX * j) * ld + d];
         }
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
+        for (int i = 0; i < RM; ++i)
 #pragma unroll
-          for (int j = 0; j < TN; ++j) {
+          for (int j = 0; j < RN; ++j) {
             s[i][j] = fmaf(a[i], b[j], s[i][j]);
             dp[i][j] = fmaf(e[i], c[j], dp[i][j]);
           }
       }
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
+        for (int j = 0; j < RN; ++j) {
           const int key = k0 + ty + TY * i, ql = tx + TX * j;
           const float p = visible(q0 + ql, key, S, window) ? expf(s[i][j] - lses[ql]) : 0.f;
-          ps[(ty + TY * i) * PLD + ql] = p;
-          dss[(ty + TY * i) * PLD + ql] = p * (dp[i][j] - dels[ql]);
+          ps[(ty + TY * i) * PL + ql] = p;
+          dss[(ty + TY * i) * PL + ql] = p * (dp[i][j] - dels[ql]);
         }
       __syncthreads();   // ps, dss complete
 
-      const int rows = min(BQ, S - q0);
+      const int rows = min(R, S - q0);
       for (int c = 0; c < rows; ++c) {
-        float pc[TM], dc[TM];
+        float pc[RM], dc[RM];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          pc[i] = ps[(ty + TY * i) * PLD + c];
-          dc[i] = dss[(ty + TY * i) * PLD + c];
+        for (int i = 0; i < RM; ++i) {
+          pc[i] = ps[(ty + TY * i) * PL + c];
+          dc[i] = dss[(ty + TY * i) * PL + c];
         }
 #pragma unroll
         for (int j = 0; j < DN; ++j) {
@@ -312,7 +396,7 @@ fa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float ov = col < dh ? dos[c * ld + col] : 0.f;
           const float qv = col < dh ? qs[c * ld + col] : 0.f;
 #pragma unroll
-          for (int i = 0; i < TM; ++i) {
+          for (int i = 0; i < RM; ++i) {
             adv[i][j] = fmaf(pc[i], ov, adv[i][j]);
             adk[i][j] = fmaf(dc[i], qv, adk[i][j]);
           }
@@ -323,7 +407,7 @@ fa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+  for (int i = 0; i < RM; ++i) {
     const int key = k0 + ty + TY * i;
     if (key >= S) continue;
     float* krow = dk + ((size_t)bkv * S + key) * dh;
@@ -339,319 +423,592 @@ fa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// -- bf16: tensor cores --------------------------------------------------------
+// -- bf16: wgmma, TMA ring ----------------------------------------------------
 
-// A fragments (hi and lo halves) of a 16 x 16 block from two accumulator
-// tiles of 16 x 8 (columns 0-7 in c0, 8-15 in c1), as the forward's P.
-__device__ __forceinline__ void split_a(const float (&c0)[4], const float (&c1)[4],
-                                        unsigned (&hi)[4], unsigned (&lo)[4]) {
-  split_bf16(c0[0], c0[1], hi[0], lo[0]);
-  split_bf16(c0[2], c0[3], hi[1], lo[1]);
-  split_bf16(c1[0], c1[1], hi[2], lo[2]);
-  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+// Block shapes.  Registers are allocated to warps in groups of four, so a
+// producer warp beside the consumers would cost a warpgroup's registers and
+// cap every thread at 168 (ptxas gives the consumers no more than the launch
+// budget, setmaxnreg or not), below dK's 223 at Dh 256.  So the blocks are
+// consumer warpgroups only, and warp 0 of warpgroup 0 issues the TMA loads
+// (one lane; all 32 arrive): it refills a stage once both warpgroups have
+// released it.
+template <int NP>   // (b) at Dh zero-filled to 64 NP
+struct DkdvShape {
+  // NP <= 2: one warpgroup computes dK and dV (2 NP x 32 f32 a thread
+  // beside S^T and dP^T), two blocks an SM.  NP > 2: that would be 320 f32,
+  // so warpgroup 0 computes dV and warpgroup 1 dK, each over all of Dh, from
+  // the same tiles; both compute S^T.
+  static constexpr int NWG = NP <= 2 ? 1 : 2;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int MIN_BLOCKS = NWG == 1 ? 2 : 1;
+  static constexpr int STAGES = NP == 1 ? 4 : NP == 3 ? 3 : 2;
+};
+
+template <int NP>   // (c)
+struct DqShape {
+  // NP <= 2: one warpgroup, two blocks an SM; NP > 2: two warpgroups, each
+  // the dQ of the panels p with p % 2 == its index, both computing S and dP.
+  static constexpr int NWG = NP > 2 ? 2 : 1;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int MIN_BLOCKS = NWG == 1 ? 2 : 1;
+  static constexpr int STAGES = NP == 1 ? 4 : 2;
+};
+
+template <int NP>
+__host__ __device__ constexpr unsigned tile_bytes() { return NP * PANEL_BYTES; }   // 64 rows
+constexpr unsigned LD_BYTES = 2 * 64 * sizeof(float);   // a tile's lse log2 e and D rows
+
+struct BwdArgs {
+  const bf16 *q, *k, *v, *dout;
+  const float* ld;            // (bh, 2, sp): lse log2 e and D rows, zero-padded
+  bf16 *dq, *dk, *dv;
+  float *dk_part, *dv_part;   // (chunks, BKV, S, Dh) f32; unused with one chunk
+  int bkv, S, sp, dh, group, heads, chunks, pairs, window, tma;
+  float scale;
+};
+
+struct Maps {                 // TMA maps: q, k, v, dO (bf16 tiles) and ld
+  CUtensorMap q, k, v, dout, ld;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-// acc (16 x 16 DK, as 2 DK accumulator tiles) += A (hi + lo, 16 x 16) B,
-// where B's 16 rows start at `rows` in a [..][LD] tile and span its columns.
-template <int DK, int LD>
-__device__ __forceinline__ void mma_rows(float (&acc)[2 * DK][4], const unsigned (&hi)[4],
-                                         const unsigned (&lo)[4], const bf16* rows, int lane) {
-#pragma unroll
-  for (int dp = 0; dp < DK; ++dp) {
-    unsigned b[4];                    // columns 16 dp + [0, 8) and [8, 16)
-    ldmatrix_x4_trans(b, rows + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
-                             (lane >> 4) * 8);
-    mma_bf16(acc[2 * dp], hi, b[0], b[1]);
-    mma_bf16(acc[2 * dp], lo, b[0], b[1]);
-    mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
-    mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
+// The copy route: `rows` (<= 64) rows of a contiguous (rows, dh) slab into
+// a tile of swizzled panels, zero-filled, by one warp.
+template <int NP>
+__device__ __forceinline__ void copy_tile(bf16* tile, const bf16* src, int rows, int dh,
+                                          int lane) {
+  constexpr int W = 64 * NP;
+  for (int e = lane; e < 64 * W; e += 32) {
+    const int r = e / W, c = e - r * W;
+    tile[sw128_offset(r, c)] =
+        r < rows && c < dh ? src[(size_t)r * dh + c] : __float2bfloat16(0.f);
   }
 }
 
-// Stage this warp's 16 rows of `acc` times `mul` as bf16 into `tile` (its
-// rows of a [..][LD] tile, which no other warp reads), then store the rows
-// below S to `dst` (row0's row of a contiguous (S, dh) slab).
-template <int DK, int LD>
-__device__ __forceinline__ void store_rows(const float (&acc)[2 * DK][4], float mul,
-                                           bf16* tile, bf16* dst, int rows, int dh,
-                                           bool vec, int lane) {
-  const int g = lane >> 2, tq = lane & 3;
+// Load the 64-row tiles at row0 of matrix n of two (n, S, dh) tensors into
+// t0 and t1 and, with `lds`, the tile's ld rows (matrix n's lse and D at
+// queries row0..row0 + 63), completing on `bar` (32 arrivals, one a lane of
+// the calling warp): by TMA from lane 0, or copied by the warp.
+template <int NP>
+__device__ __forceinline__ void load_tiles(bf16* t0, bf16* t1, float* lds,
+                                           const CUtensorMap* m0, const CUtensorMap* m1,
+                                           const Maps& maps, const bf16* s0, const bf16* s1,
+                                           int row0, int n, uint64_t* bar, const BwdArgs& a,
+                                           int lane) {
+  if (a.tma) {
+    if (lane == 0) {
+      mbar_arrive_tx(bar, 2 * tile_bytes<NP>() + (lds ? LD_BYTES : 0));
 #pragma unroll
-  for (int n = 0; n < 2 * DK; ++n) {
-    const int col = n * 8 + tq * 2;
-    *reinterpret_cast<__nv_bfloat162*>(tile + g * LD + col) =
-        __floats2bfloat162_rn(acc[n][0] * mul, acc[n][1] * mul);
-    *reinterpret_cast<__nv_bfloat162*>(tile + (g + 8) * LD + col) =
-        __floats2bfloat162_rn(acc[n][2] * mul, acc[n][3] * mul);
-  }
-  __syncwarp();
-  if (vec) {
-    const int ch = dh / 8;
-    for (int e = lane; e < rows * ch; e += 32) {
-      const int r = e / ch, c = e - r * ch;
-      *reinterpret_cast<uint4*>(dst + (size_t)r * dh + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + r * LD + c * 8);
+      for (int p = 0; p < NP; ++p) {
+        tma_load_3d(t0 + p * PANEL, m0, bar, 64 * p, row0, n);
+        tma_load_3d(t1 + p * PANEL, m1, bar, 64 * p, row0, n);
+      }
+      if (lds) tma_load_2d(lds, &maps.ld, bar, row0, 2 * n);
+    } else {
+      mbar_arrive(bar);
     }
   } else {
-    for (int e = lane; e < rows * dh; e += 32) {
-      const int r = e / dh, c = e - r * dh;
-      dst[(size_t)r * dh + c] = tile[r * LD + c];
-    }
+    const size_t off = ((size_t)n * a.S + row0) * a.dh;
+    copy_tile<NP>(t0, s0 + off, a.S - row0, a.dh, lane);
+    copy_tile<NP>(t1, s1 + off, a.S - row0, a.dh, lane);
+    if (lds)
+      for (int r = lane; r < 128; r += 32)
+        lds[r] = a.ld[(size_t)(2 * n + r / 64) * a.sp + row0 + r % 64];
+    fence_proxy_async();
+    mbar_arrive(bar);
   }
 }
 
-template <int DK>   // DP = 16 DK: Dh zero-filled up to a multiple of 16
-__global__ void __launch_bounds__(TC_THREADS)
-fa_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dq, int S, int dh, int group, float scale,
-                      int window, bool vec) {
-  constexpr int DP = 16 * DK, LD = DP + 8, TILE = BQ * LD;
-  constexpr bool FREG = DK <= 4;      // q and dO fragments in registers, else per tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]; dQ staged here last
-  bf16* dos = qs + TILE;                         // [BQ][LD]
-  bf16* ks = dos + TILE;                         // [TK][LD]
-  bf16* vs = ks + TILE;                          // [TK][LD]
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;     // heaviest tiles first
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;        // accumulator row and column pair
-  const bf16* kb = k + (size_t)(bh / group) * S * dh;
-  const bf16* vb = v + (size_t)(bh / group) * S * dh;
-  const int arow = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-
-  stage_bf16<DP>(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, vec);
-  stage_bf16<DP>(dos, dout + ((size_t)bh * S + q0) * dh, S - q0, dh, vec);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  unsigned qf[FREG ? DK : 1][4], of[FREG ? DK : 1][4];
-  if constexpr (FREG) {
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-      ldmatrix_x4(qf[kk], qs + arow + kk * 16);
-      ldmatrix_x4(of[kk], dos + arow + kk * 16);
-    }
-  }
-  float rl[2], rd[2];                 // lse log2e and D of rows g and g + 8
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
-    rl[r] = row < S ? lse[(size_t)bh * S + row] * LOG2E : 0.f;
-    rd[r] = row < S ? delta[(size_t)bh * S + row] : 0.f;
-  }
-  float acc[2 * DK][4];
-#pragma unroll
-  for (int n = 0; n < 2 * DK; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int t = first_tile(q0, window); t <= qt; ++t) {
-    const int k0 = t * TK;
-    stage_bf16<DP>(ks, kb + (size_t)k0 * dh, S - k0, dh, vec);
-    stage_bf16<DP>(vs, vb + (size_t)k0 * dh, S - k0, dh, vec);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-
-    float s[TK / 8][4], dp[TK / 8][4];   // keys 8 n + 2 tq + {0, 1}
-#pragma unroll
-    for (int n = 0; n < TK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-      unsigned a[4], o[4];
-      if constexpr (FREG) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          a[e] = qf[kk][e];
-          o[e] = of[kk][e];
-        }
-      } else {
-        ldmatrix_x4(a, qs + arow + kk * 16);
-        ldmatrix_x4(o, dos + arow + kk * 16);
-      }
-#pragma unroll
-      for (int np = 0; np < TK / 16; ++np) {
-        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                        ((lane >> 3) & 1) * 8;
-        unsigned b[4];                // keys 16 np + [0, 8) and [8, 16)
-        ldmatrix_x4(b, ks + off);
-        mma_bf16(s[2 * np], a, b[0], b[1]);
-        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-        ldmatrix_x4(b, vs + off);
-        mma_bf16(dp[2 * np], o, b[0], b[1]);
-        mma_bf16(dp[2 * np + 1], o, b[2], b[3]);
-      }
-    }
-
-    // dS = P o (dP - D), P = exp(scale s - lse); 0 where the forward masks
-#pragma unroll
-    for (int n = 0; n < TK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = q0 + warp * 16 + g + (e >> 1) * 8;
-        const int key = k0 + n * 8 + tq * 2 + (e & 1);
-        const float p = visible(row, key, S, window)
-                            ? exp2f(fmaf(s[n][e] * scale, LOG2E, -rl[e >> 1])) : 0.f;
-        s[n][e] = p * (dp[n][e] - rd[e >> 1]);
-      }
-
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {   // dQ += dS K over keys 16 kk + [0, 16)
-      unsigned hi[4], lo[4];
-      split_a(s[2 * kk], s[2 * kk + 1], hi, lo);
-      mma_rows<DK, LD>(acc, hi, lo, ks + kk * 16 * LD, lane);
-    }
-    __syncthreads();   // the next tile overwrites ks and vs
-  }
-
-  const int row0 = q0 + warp * 16;
-  store_rows<DK, LD>(acc, scale, qs + warp * 16 * LD, dq + ((size_t)bh * S + row0) * dh,
-                     min(16, S - row0), dh, vec, lane);
+// A consumer warp is done with what a barrier guards: one arrival a warp.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
 }
 
-template <int DK>
-__global__ void __launch_bounds__(TC_THREADS)
-fa_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int dh,
-                        int group, float scale, int window, bool vec) {
-  constexpr int DP = 16 * DK, LD = DP + 8, TILE = BQ * LD;
-  constexpr bool FREG = DK <= 4;      // k and v fragments in registers, else per tile
-  constexpr int QH = 32;              // queries a pass: half a query tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [TK][LD]; dK staged here last
-  bf16* vs = ks + TILE;                          // [TK][LD]; dV staged here last
-  bf16* qs = vs + TILE;                          // [BQ][LD]
-  bf16* dos = qs + TILE;                         // [BQ][LD]
-  float* lses = reinterpret_cast<float*>(dos + TILE);   // [BQ], lse log2e
-  float* dels = lses + BQ;                               // [BQ], D
-  const int bkv = blockIdx.x;
-  const int k0 = blockIdx.y * TK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// A fragments (hi and lo halves) of columns 16 kk + [0, 16) of a 64 x 64
+// accumulator (its 16 x 8 tiles 2 kk and 2 kk + 1), as the forward's P.
+__device__ __forceinline__ void split_a(const float (&c)[32], int kk, unsigned (&hi)[4],
+                                        unsigned (&lo)[4]) {
+  split_bf16(c[8 * kk], c[8 * kk + 1], hi[0], lo[0]);
+  split_bf16(c[8 * kk + 2], c[8 * kk + 3], hi[1], lo[1]);
+  split_bf16(c[8 * kk + 4], c[8 * kk + 5], hi[2], lo[2]);
+  split_bf16(c[8 * kk + 6], c[8 * kk + 7], hi[3], lo[3]);
+}
+
+// Byte steps of K-major step kk (16 head-dim columns) and of MN-major step
+// kk (16 rows) of panel p in a tile of swizzled panels.
+__device__ __forceinline__ unsigned k_step(int kk) { return (kk >> 2) * PANEL_BYTES + (kk & 3) * 32; }
+__device__ __forceinline__ unsigned mn_step(int p, int kk) { return p * PANEL_BYTES + kk * 2048; }
+
+// d = A B^T over the 64 NP columns of two K-major tiles at shared addresses
+// a and b.
+template <int NP>
+__device__ __forceinline__ void wgmma_tile(float (&d)[32], unsigned a, unsigned b) {
+  wgmma_ss_first(d, a, 0, b, 0);
+#pragma unroll
+  for (int kk = 1; kk < 4 * NP; ++kk) wgmma_ss(d, a, k_step(kk), b, k_step(kk));
+}
+
+// Store the pair (x, y) at columns col, col + 1 of row `row` of a (.., dh)
+// slab, the columns < dh only; a pair store where dh is even.
+__device__ __forceinline__ void store_pair(bf16* base, size_t row, int col, int dh, float x,
+                                           float y) {
+  bf16* p = base + row * dh + col;
+  if ((dh & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  } else {
+    p[0] = __float2bfloat16(x);
+    if (col + 1 < dh) p[1] = __float2bfloat16(y);
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* base, size_t row, int col, int dh, float x,
+                                           float y) {
+  float* p = base + row * dh + col;
+  if ((dh & 1) == 0) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  } else {
+    p[0] = x;
+    if (col + 1 < dh) p[1] = y;
+  }
+}
+
+// Store panel p of a warpgroup's 64-row accumulator (rows row0 + 16 w + g
+// (+ 8), columns 64 p + 8 j + 2 tq (+ 1)) times `mul` into a (.., dh) slab,
+// rows below `rows` only.
+template <typename T>
+__device__ __forceinline__ void store_panel(const float (&acc)[32], T* base, size_t row0,
+                                            int rows, int p, int dh, float mul, int w, int g,
+                                            int tq) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * w + g + 8 * hr, col = 64 * p + 8 * j + 2 * tq;
+      if (r < rows && col < dh)
+        store_pair(base, row0 + r, col, dh, acc[4 * j + 2 * hr] * mul,
+                   acc[4 * j + 2 * hr + 1] * mul);
+    }
+}
+
+// Shared memory of (b): k, v; STAGES x (q, dO); STAGES x ld rows; barriers.
+template <int NP>
+constexpr size_t dkdv_smem() {
+  constexpr int STAGES = DkdvShape<NP>::STAGES;
+  return 1024 + (2 + 2 * STAGES) * (size_t)tile_bytes<NP>() + STAGES * LD_BYTES +
+         (2 * STAGES + 2) * sizeof(uint64_t);
+}
+
+// Shared memory of (c): q, dO; STAGES x (k, v); barriers.
+template <int NP>
+constexpr size_t dq_smem() {
+  constexpr int STAGES = DqShape<NP>::STAGES;
+  return 1024 + (2 + 2 * STAGES) * (size_t)tile_bytes<NP>() +
+         (2 * STAGES + 1) * sizeof(uint64_t);
+}
+
+// (b)'s work of one block: key tile kt(i) for i < nkt, then each head of
+// the chunk, then query tiles kt .. qlast(kt); tile n of it in that order.
+struct DkdvWork {
+  int pair, T, nkt, S, window, heads;
+  __device__ int kt(int i) const { return i == 0 ? pair : T - 1 - pair; }
+  __device__ int qlast(int i) const { return last_q_tile<64>(kt(i) * 64, S, window); }
+  __device__ int tiles(int i) const { return heads * (qlast(i) - kt(i) + 1); }
+  __device__ int total() const { return tiles(0) + (nkt == 2 ? tiles(1) : 0); }
+  // (head of the chunk, query tile) of tile n
+  __device__ void at(int n, int& h, int& qt) const {
+    const int i = n < tiles(0) ? 0 : 1, r = i == 0 ? n : n - tiles(0);
+    const int len = qlast(i) - kt(i) + 1;
+    h = r / len;
+    qt = kt(i) + r % len;
+  }
+};
+
+// What a consumer warpgroup of (b) accumulates.
+enum Role { DK_AND_DV, DV_ONLY, DK_ONLY };
+
+template <int NP>
+struct DkdvSmem {
+  bf16 *ks, *vs, *stage0;              // stage s: q at 2 s TILE, dO after
+  float* lds0;                         // stage s: 128 floats at 128 s
+  uint64_t *full, *empty, *kv_full, *kv_empty;
+};
+
+// The issuing warp: tile n of the block's work into stage s.
+template <int NP>
+__device__ __forceinline__ void issue_dkdv(const DkdvSmem<NP>& sm, const Maps& maps,
+                                           const BwdArgs& a, const DkdvWork& wk, int bh0,
+                                           int n, int s, int lane) {
+  int h, qt;
+  wk.at(n, h, qt);
+  bf16* qs = sm.stage0 + s * 2 * NP * PANEL;
+  load_tiles<NP>(qs, qs + NP * PANEL, sm.lds0 + s * 128, &maps.q, &maps.dout, maps, a.q,
+                 a.dout, qt * 64, bh0 + h, &sm.full[s], a, lane);
+}
+
+// The consumer side of (b) for one warpgroup (warp w of it, lane `lane`);
+// `issuer`: this is warpgroup 0's warp 0, which loads the tiles.
+template <int NP, Role ROLE>
+__device__ __forceinline__ void dkdv_consumer(const BwdArgs& a, const Maps& maps,
+                                              const DkdvSmem<NP>& sm, const DkdvWork& wk,
+                                              int bkv, int chunk, int w, int lane,
+                                              bool issuer) {
+  constexpr int STAGES = DkdvShape<NP>::STAGES;
+  constexpr bool DO_V = ROLE != DK_ONLY, DO_K = ROLE != DV_ONLY;
+  const int S = a.S, window = a.window;
   const int g = lane >> 2, tq = lane & 3;
-  const int arow = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-
-  stage_bf16<DP>(ks, k + ((size_t)bkv * S + k0) * dh, S - k0, dh, vec);
-  stage_bf16<DP>(vs, v + ((size_t)bkv * S + k0) * dh, S - k0, dh, vec);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  unsigned kf[FREG ? DK : 1][4], vf[FREG ? DK : 1][4];   // this warp's 16 keys
-  if constexpr (FREG) {
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-      ldmatrix_x4(kf[kk], ks + arow + kk * 16);
-      ldmatrix_x4(vf[kk], vs + arow + kk * 16);
-    }
+  const int bh0 = bkv * a.group + chunk * a.heads;      // this block's first q row
+  const float scale_log2 = a.scale * LOG2E;
+  const unsigned dk_base = smem_addr(sm.ks), dv_base = smem_addr(sm.vs);
+  if (issuer) {                        // k, v and the first STAGES tiles
+    load_tiles<NP>(sm.ks, sm.vs, nullptr, &maps.k, &maps.v, maps, a.k, a.v, wk.kt(0) * 64, bkv,
+                   sm.kv_full, a, lane);
+    for (int n = 0; n < STAGES && n < wk.total(); ++n)
+      issue_dkdv<NP>(sm, maps, a, wk, bh0, n, n, lane);
   }
-  float adk[2 * DK][4], adv[2 * DK][4];
+  int it = 0;
+  for (int i = 0; i < wk.nkt; ++i) {
+    const int kt = wk.kt(i), k0 = kt * 64, qlast = wk.qlast(i);
+    float adv[DO_V ? NP : 1][32], adk[DO_K ? NP : 1][32];
 #pragma unroll
-  for (int n = 0; n < 2 * DK; ++n)
+    for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
-
-  const int qt_last = last_q_tile(k0, S, window);
-  for (int h = 0; h < group; ++h) {
-    const int bh = bkv * group + h;
-    for (int qt = blockIdx.y; qt <= qt_last; ++qt) {
-      const int q0 = qt * BQ;
-      stage_bf16<DP>(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, vec);
-      stage_bf16<DP>(dos, dout + ((size_t)bh * S + q0) * dh, S - q0, dh, vec);
-      for (int r = threadIdx.x; r < BQ; r += TC_THREADS) {
-        lses[r] = q0 + r < S ? lse[(size_t)bh * S + q0 + r] * LOG2E : 0.f;
-        dels[r] = q0 + r < S ? delta[(size_t)bh * S + q0 + r] : 0.f;
+      for (int e = 0; e < 32; ++e) {
+        if constexpr (DO_V) adv[p][e] = 0.f;
+        if constexpr (DO_K) adk[p][e] = 0.f;
       }
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
+    mbar_wait(sm.kv_full, i);
+    for (int h = 0; h < wk.heads; ++h) {
+      for (int qt = kt; qt <= qlast; ++qt, ++it) {
+        const int s = it % STAGES, q0 = qt * 64;
+        const unsigned phase = (it / STAGES) & 1;
+        mbar_wait(&sm.full[s], phase);
+        const bf16* qs = sm.stage0 + s * 2 * NP * PANEL;
+        const unsigned dq_base = smem_addr(qs), ddo_base = smem_addr(qs + NP * PANEL);
 
-      for (int qh0 = 0; qh0 < BQ; qh0 += QH) {
-        // S^T = K Q^T and dP^T = V dO^T: this warp's keys by the pass's queries
-        float s[QH / 8][4], dp[QH / 8][4];   // queries qh0 + 8 n + 2 tq + {0, 1}
-#pragma unroll
-        for (int n = 0; n < QH / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DK; ++kk) {
-          unsigned a[4], w[4];
-          if constexpr (FREG) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              a[e] = kf[kk][e];
-              w[e] = vf[kk][e];
-            }
-          } else {
-            ldmatrix_x4(a, ks + arow + kk * 16);
-            ldmatrix_x4(w, vs + arow + kk * 16);
-          }
-#pragma unroll
-          for (int np = 0; np < QH / 16; ++np) {
-            const int off = (qh0 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                            ((lane >> 3) & 1) * 8;
-            unsigned b[4];
-            ldmatrix_x4(b, qs + off);
-            mma_bf16(s[2 * np], a, b[0], b[1]);
-            mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-            ldmatrix_x4(b, dos + off);
-            mma_bf16(dp[2 * np], w, b[0], b[1]);
-            mma_bf16(dp[2 * np + 1], w, b[2], b[3]);
-          }
-        }
+        // S^T = K Q^T (and dP^T = V dO^T): keys 16 w + g (+ 8) by queries 8 j + 2 tq
+        float st[32], dpt[32];
+        wgmma_fence();
+        wgmma_tile<NP>(st, dk_base, dq_base);
+        if constexpr (DO_K) wgmma_tile<NP>(dpt, dv_base, ddo_base);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(st);
+        if constexpr (DO_K) fence_regs(dpt);
 
         // P^T, dS^T; 0 where the forward masks
+        const float* lrow = sm.lds0 + s * 128;          // lse log2 e, then D at + 64
+        const bool inside = kt < qt && q0 + 64 <= S && (window == 0 || k0 + window > q0 + 63);
 #pragma unroll
-        for (int n = 0; n < QH / 8; ++n)
+        for (int j = 0; j < 8; ++j) {
+          const int ql = 8 * j + 2 * tq;
+          const float2 l2 = *reinterpret_cast<const float2*>(lrow + ql);
+          const float2 d2 = DO_K ? *reinterpret_cast<const float2*>(lrow + 64 + ql) : l2;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int key = k0 + warp * 16 + g + (e >> 1) * 8;
-            const int ql = qh0 + n * 8 + tq * 2 + (e & 1);
-            const float p = visible(q0 + ql, key, S, window)
-                                ? exp2f(fmaf(s[n][e] * scale, LOG2E, -lses[ql])) : 0.f;
-            s[n][e] = p;
-            dp[n][e] = p * (dp[n][e] - dels[ql]);
+            const int key = k0 + 16 * w + g + 8 * (e >> 1);
+            const int qry = q0 + ql + (e & 1);
+            const float lv = (e & 1) ? l2.y : l2.x, dd = (e & 1) ? d2.y : d2.x;
+            const float p = inside || visible(qry, key, S, window)
+                                ? exp2f(fmaf(st[4 * j + e], scale_log2, -lv)) : 0.f;
+            st[4 * j + e] = p;
+            if constexpr (DO_K) dpt[4 * j + e] = p * (dpt[4 * j + e] - dd);
           }
-
+        }
+        unsigned phi[DO_V ? 4 : 1][4], plo[DO_V ? 4 : 1][4];   // P^T, hi and lo
+        unsigned dhi[DO_K ? 4 : 1][4], dlo[DO_K ? 4 : 1][4];   // dS^T, hi and lo
 #pragma unroll
-        for (int kk = 0; kk < QH / 16; ++kk) {   // over queries qh0 + 16 kk + [0, 16)
-          unsigned hi[4], lo[4];
-          split_a(s[2 * kk], s[2 * kk + 1], hi, lo);
-          mma_rows<DK, LD>(adv, hi, lo, dos + (qh0 + kk * 16) * LD, lane);   // dV += P^T dO
-          split_a(dp[2 * kk], dp[2 * kk + 1], hi, lo);
-          mma_rows<DK, LD>(adk, hi, lo, qs + (qh0 + kk * 16) * LD, lane);    // dK += dS^T Q
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (DO_V) split_a(st, kk, phi[kk], plo[kk]);
+          if constexpr (DO_K) split_a(dpt, kk, dhi[kk], dlo[kk]);
+        }
+
+        // dV += P^T dO, dK += dS^T Q over the tile's queries 16 kk + [0, 16).
+        // The operands' registers are fenced first: a conversion that the
+        // compiler sank past wgmma.fence would make ptxas serialise the batch.
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          if constexpr (DO_V) fence_regs(adv[p]);
+          if constexpr (DO_K) fence_regs(adk[p]);
+        }
+        if constexpr (DO_V) {
+          fence_regs(phi);
+          fence_regs(plo);
+        }
+        if constexpr (DO_K) {
+          fence_regs(dhi);
+          fence_regs(dlo);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            if constexpr (DO_V) {
+              wgmma_rs(adv[p], phi[kk], ddo_base, mn_step(p, kk));
+              wgmma_rs(adv[p], plo[kk], ddo_base, mn_step(p, kk));
+            }
+            if constexpr (DO_K) {
+              wgmma_rs(adk[p], dhi[kk], dq_base, mn_step(p, kk));
+              wgmma_rs(adk[p], dlo[kk], dq_base, mn_step(p, kk));
+            }
+          }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          if constexpr (DO_V) fence_regs(adv[p]);
+          if constexpr (DO_K) fence_regs(adk[p]);
+        }
+        if constexpr (DO_V) {
+          fence_regs(phi);
+          fence_regs(plo);
+        }
+        if constexpr (DO_K) {
+          fence_regs(dhi);
+          fence_regs(dlo);
+        }
+        release(&sm.empty[s], lane);
+        if (issuer && it + STAGES < wk.total()) {   // refill once every warp left it
+          mbar_wait(&sm.empty[s], phase);
+          issue_dkdv<NP>(sm, maps, a, wk, bh0, it + STAGES, s, lane);
         }
       }
-      __syncthreads();   // the next tile overwrites qs, dos, lses and dels
+    }
+
+    // dK = scale sum dS^T Q, dV: this chunk's sums, bf16 or f32 partials
+    const size_t part = ((size_t)chunk * a.bkv + bkv) * S + k0;
+    const size_t row0 = (size_t)bkv * S + k0;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      if (a.chunks == 1) {
+        if constexpr (DO_K) store_panel(adk[p], a.dk, row0, S - k0, p, a.dh, a.scale, w, g, tq);
+        if constexpr (DO_V) store_panel(adv[p], a.dv, row0, S - k0, p, a.dh, 1.f, w, g, tq);
+      } else {
+        if constexpr (DO_K) store_panel(adk[p], a.dk_part, part, S - k0, p, a.dh, 1.f, w, g, tq);
+        if constexpr (DO_V) store_panel(adv[p], a.dv_part, part, S - k0, p, a.dh, 1.f, w, g, tq);
+      }
+    }
+    release(sm.kv_empty, lane);        // k and v may be replaced
+    if (issuer && i + 1 < wk.nkt) {
+      mbar_wait(sm.kv_empty, 0);
+      load_tiles<NP>(sm.ks, sm.vs, nullptr, &maps.k, &maps.v, maps, a.k, a.v, wk.kt(i + 1) * 64,
+                     bkv, sm.kv_full, a, lane);
+    }
+  }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(DkdvShape<NP>::THREADS, DkdvShape<NP>::MIN_BLOCKS)
+fa_bwd_dkdv_bf16_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
+  using Sh = DkdvShape<NP>;
+  constexpr int STAGES = Sh::STAGES, TILE = NP * PANEL;
+  extern __shared__ unsigned char smem_raw[];
+  DkdvSmem<NP> sm;
+  sm.ks = reinterpret_cast<bf16*>(align1024(smem_raw));
+  sm.vs = sm.ks + TILE;
+  sm.stage0 = sm.vs + TILE;
+  sm.lds0 = reinterpret_cast<float*>(sm.stage0 + STAGES * 2 * TILE);
+  sm.full = reinterpret_cast<uint64_t*>(sm.lds0 + STAGES * 128);
+  sm.empty = sm.full + STAGES;
+  sm.kv_full = sm.empty + STAGES;
+  sm.kv_empty = sm.kv_full + 1;
+
+  const int T = (a.S + 63) / 64;
+  const int pair = blockIdx.x % a.pairs;
+  const int rest = blockIdx.x / a.pairs;
+  const int chunk = rest % a.chunks, bkv = rest / a.chunks;
+  const DkdvWork wk{pair, T, pair == T - 1 - pair ? 1 : 2, a.S, a.window, a.heads};
+  const int wg = warpgroup_index(), w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 32);
+      mbar_init(&sm.empty[s], 4 * Sh::NWG);
+    }
+    mbar_init(sm.kv_full, 32);
+    mbar_init(sm.kv_empty, 4 * Sh::NWG);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if constexpr (Sh::NWG == 1) {
+    dkdv_consumer<NP, DK_AND_DV>(a, maps, sm, wk, bkv, chunk, w, lane, w == 0);
+  } else if (wg == 0) {
+    dkdv_consumer<NP, DV_ONLY>(a, maps, sm, wk, bkv, chunk, w, lane, w == 0);
+  } else {
+    dkdv_consumer<NP, DK_ONLY>(a, maps, sm, wk, bkv, chunk, w, lane, false);
+  }
+}
+
+// (s): dk = scale sum_c dk_part[c], dv = sum_c dv_part[c], in chunk order.
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_sum_kernel(const float* __restrict__ dk_part, const float* __restrict__ dv_part,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, size_t n, int chunks,
+                  float scale) {
+  for (size_t e = blockIdx.x * (size_t)THREADS + threadIdx.x; e < 2 * n;
+       e += (size_t)gridDim.x * THREADS) {
+    const bool is_k = e < n;
+    const size_t i = is_k ? e : e - n;
+    const float* src = (is_k ? dk_part : dv_part) + i;
+    float acc = 0.f;
+    for (int c = 0; c < chunks; ++c) acc += src[(size_t)c * n];
+    if (is_k) dk[i] = __float2bfloat16(acc * scale);
+    else dv[i] = __float2bfloat16(acc);
+  }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(DqShape<NP>::THREADS, DqShape<NP>::MIN_BLOCKS)
+fa_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
+  using Sh = DqShape<NP>;
+  constexpr int STAGES = Sh::STAGES, TILE = NP * PANEL;
+  constexpr int PPW = (NP + Sh::NWG - 1) / Sh::NWG;    // panels a warpgroup owns, at most
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* dos = qs + TILE;
+  bf16* stage0 = dos + TILE;                            // stage s: k at 2 s TILE, v after
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage0 + STAGES * 2 * TILE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_full = empty + STAGES;
+
+  const int S = a.S, window = a.window;
+  const int bh = blockIdx.x, bkv = bh / a.group;
+  const int qt = gridDim.y - 1 - blockIdx.y;            // heaviest tiles first
+  const int q0 = qt * 64;
+  const int t0 = first_k_tile<64>(q0, window);
+  const int wg = warpgroup_index(), w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const bool issuer = wg == 0 && w == 0;                // loads the tiles
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 4 * Sh::NWG);
+    }
+    mbar_init(q_full, 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto issue = [&](int t, int s) {
+    bf16* ks = stage0 + s * 2 * TILE;
+    load_tiles<NP>(ks, ks + TILE, nullptr, &maps.k, &maps.v, maps, a.k, a.v, t * 64, bkv,
+                   &full[s], a, lane);
+  };
+  int next = t0;                       // the next key tile to load
+  if (issuer) {
+    load_tiles<NP>(qs, dos, nullptr, &maps.q, &maps.dout, maps, a.q, a.dout, q0, bh, q_full, a,
+                   lane);
+    for (int s = 0; s < STAGES && next <= qt; ++s, ++next) issue(next, s);
+  }
+
+  // warpgroup wg owns the dQ panels wg, wg + NWG, ...
+  const int g = lane >> 2, tq = lane & 3;
+  const float scale_log2 = a.scale * LOG2E;
+  const unsigned dq_base = smem_addr(qs), ddo_base = smem_addr(dos);
+  float rl[2], rd[2];                  // lse log2 e and D of rows 16 w + g (+ 8)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + 16 * w + g + 8 * hr;        // < sp: the rows past S hold zeros
+    rl[hr] = a.ld[(size_t)(2 * bh) * a.sp + row];
+    rd[hr] = a.ld[(size_t)(2 * bh + 1) * a.sp + row];
+  }
+  float adq[PPW][32];
+#pragma unroll
+  for (int ii = 0; ii < PPW; ++ii)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) adq[ii][e] = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int t = t0, it = 0; t <= qt; ++t, ++it) {
+    const int s = it % STAGES, k0 = t * 64;
+    const unsigned phase = (it / STAGES) & 1;
+    mbar_wait(&full[s], phase);
+    const bf16* ks = stage0 + s * 2 * TILE;
+    const unsigned dk_base = smem_addr(ks), dv_base = smem_addr(ks + TILE);
+
+    // S = Q K^T, dP = dO V^T: queries 16 w + g (+ 8) by keys 8 j + 2 tq
+    float st[32], dpt[32];
+    wgmma_fence();
+    wgmma_tile<NP>(st, dq_base, dk_base);
+    wgmma_tile<NP>(dpt, ddo_base, dv_base);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // dS = P o (dP - D); 0 where the forward masks
+    const bool inside = t < qt && q0 + 64 <= S && (window == 0 || k0 + window > q0 + 63);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qry = q0 + 16 * w + g + 8 * (e >> 1);
+        const int key = k0 + 8 * j + 2 * tq + (e & 1);
+        const float p = inside || visible(qry, key, S, window)
+                            ? exp2f(fmaf(st[4 * j + e], scale_log2, -rl[e >> 1])) : 0.f;
+        dpt[4 * j + e] = p * (dpt[4 * j + e] - rd[e >> 1]);
+      }
+    unsigned dhi[4][4], dlo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) split_a(dpt, kk, dhi[kk], dlo[kk]);
+
+    // dQ += dS K over the tile's keys 16 kk + [0, 16), operands fenced first
+#pragma unroll
+    for (int ii = 0; ii < PPW; ++ii) fence_regs(adq[ii]);
+    fence_regs(dhi);
+    fence_regs(dlo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int ii = 0; ii < PPW; ++ii) {
+        const int p = wg + ii * Sh::NWG;
+        if (p < NP) {
+          wgmma_rs(adq[ii], dhi[kk], dk_base, mn_step(p, kk));
+          wgmma_rs(adq[ii], dlo[kk], dk_base, mn_step(p, kk));
+        }
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int ii = 0; ii < PPW; ++ii) fence_regs(adq[ii]);
+    fence_regs(dhi);
+    fence_regs(dlo);
+    release(&empty[s], lane);
+    if (issuer && next <= qt) {        // refill the stage once every warp left it
+      mbar_wait(&empty[s], phase);
+      issue(next++, s);
     }
   }
 
-  const int row0 = k0 + warp * 16;
-  const int rows = min(16, S - row0);
-  store_rows<DK, LD>(adk, scale, ks + warp * 16 * LD, dk + ((size_t)bkv * S + row0) * dh,
-                     rows, dh, vec, lane);
-  store_rows<DK, LD>(adv, 1.f, vs + warp * 16 * LD, dv + ((size_t)bkv * S + row0) * dh,
-                     rows, dh, vec, lane);
+#pragma unroll
+  for (int ii = 0; ii < PPW; ++ii) {
+    const int p = wg + ii * Sh::NWG;
+    if (p < NP)
+      store_panel(adq[ii], a.dq, (size_t)bh * S + q0, S - q0, p, a.dh, a.scale, w, g, tq);
+  }
 }
 
 // -- launch --------------------------------------------------------------------
 
+// f32 tile rows: 64 up to Dh 128, 32 above (four tiles of Dh 256 then fit).
+int f32_rows(int dh) { return dh > 128 ? 32 : 64; }
+
 // Dynamic shared memory of one block of (b) (`dkdv`) or (c), in bytes.
 size_t bwd_smem_bytes(int dh, int dtype, bool dkdv) {
   if (dtype == 0) {
-    const size_t tiles = (size_t)(2 * BQ + 2 * TK) * (dh + 1);
-    return (tiles + (dkdv ? 2 * (size_t)TK * PLD + 2 * BQ : (size_t)BQ * PLD)) * sizeof(float);
+    const size_t r = f32_rows(dh);
+    const size_t tiles = 4 * r * (dh + 1);
+    return (tiles + (dkdv ? 2 * r * (r + 1) + 2 * r : r * (r + 1))) * sizeof(float);
   }
-  const size_t ld = 16 * (size_t)((dh + 15) / 16) + 8;
-  return (size_t)(2 * BQ + 2 * TK) * ld * sizeof(bf16) + (dkdv ? 2 * BQ * sizeof(float) : 0);
+  switch ((dh + 63) / 64) {
+    case 1: return dkdv ? dkdv_smem<1>() : dq_smem<1>();
+    case 2: return dkdv ? dkdv_smem<2>() : dq_smem<2>();
+    case 3: return dkdv ? dkdv_smem<3>() : dq_smem<3>();
+    default: return dkdv ? dkdv_smem<4>() : dq_smem<4>();
+  }
 }
 
 template <typename Kernel>
@@ -660,85 +1017,197 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
   void *dq, *dk, *dv;
+  float* scratch;
+  long long scratch_floats;
   int bh, bkv, S, dh, window;
   cudaStream_t stream;
 };
 
-template <typename T>
-cudaError_t launch_delta(const void* o, const Args& a, float* delta) {
-  const int rows = a.bh * a.S;
-  fa_bwd_delta_kernel<T><<<(rows + DELTA_ROWS - 1) / DELTA_ROWS, THREADS, 0, a.stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(a.dout), delta, rows, a.dh);
+int padded(int S) { return (S + 63) / 64 * 64; }
+
+// Blocks of (b) that an SM holds at once, at this Dh (its registers and
+// shared memory; asked of the runtime once).
+template <int NP>
+int dkdv_blocks_per_sm() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    const size_t smem = dkdv_smem<NP>();
+    int n = 0;
+    if (allow_smem(fa_bwd_dkdv_bf16_kernel<NP>, smem) == cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fa_bwd_dkdv_bf16_kernel<NP>,
+                                                      DkdvShape<NP>::THREADS, smem) ==
+            cudaSuccess && n > 0)
+      blocks = n;
+    else
+      return 1;
+  }
+  return blocks;
+}
+
+int dkdv_slots(int dh, int sms) {
+  switch ((dh + 63) / 64) {
+    case 1: return sms * dkdv_blocks_per_sm<1>();
+    case 2: return sms * dkdv_blocks_per_sm<2>();
+    case 3: return sms * dkdv_blocks_per_sm<3>();
+    default: return sms * dkdv_blocks_per_sm<4>();
+  }
+}
+
+// The G-chunks of (b): the divisor c of G whose grid (BKV x pairs x c
+// blocks of G / c heads each, equal work) takes the fewest waves x tiles a
+// block on `slots` concurrent blocks; the smallest on ties (each chunk
+// beyond one costs the sum pass over its partials).  Qwen2-0.5B's
+// training shape: 7 (448 blocks of 17 tiles); Qwen2.5-14B's heads at Dh
+// 128: 1 (256 blocks, within a wave); RecurrentGemma-2B's: 10.
+int bf16_chunks(int bkv, int group, int S, int slots) {
+  const long long pairs = ((S + 63) / 64 + 1) / 2;
+  int best = group;
+  long long best_cost = -1;
+  for (int c = 1; c <= group; ++c) {
+    if (group % c) continue;
+    const long long waves = (bkv * pairs * c + slots - 1) / slots;
+    const long long cost = waves * (group / c);
+    if (best_cost < 0 || cost < best_cost) {
+      best = c;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Scratch floats: f32 D (bh, S); bf16 the ld rows (bh, 2, sp) and, with
+// more than one G-chunk, the chunks' partial dK and dV.
+long long scratch_floats(int bh, int bkv, int S, int dh, int dtype, int sms) {
+  if (dtype == 0) return (long long)bh * S;
+  const int chunks = bf16_chunks(bkv, bh / bkv, S, dkdv_slots(dh, sms));
+  return 2LL * bh * padded(S) + (chunks == 1 ? 0 : 2LL * chunks * bkv * (long long)S * dh);
+}
+
+template <typename T, int LANES>
+cudaError_t launch_delta(const Args& a, const float* lse, float* out) {
+  const long long items = (long long)a.bh * (lse == nullptr ? a.S : padded(a.S));
+  fa_bwd_delta_kernel<T, LANES><<<(unsigned)((items * LANES + THREADS - 1) / THREADS), THREADS,
+                                  0, a.stream>>>(static_cast<const T*>(a.o),
+                                                 static_cast<const T*>(a.dout), lse, out, a.bh,
+                                                 a.S, padded(a.S), a.dh);
   return cudaGetLastError();
 }
 
-template <int DN>
+template <int DN, int R>
 cudaError_t launch_f32(const Args& a) {
-  const int tiles = (a.S + BQ - 1) / BQ, group = a.bh / a.bkv;
+  const int tiles = (a.S + R - 1) / R, group = a.bh / a.bkv;
   const float scale = 1.0f / sqrtf((float)a.dh);
   auto cf = [](const void* p) { return static_cast<const float*>(p); };
   auto mf = [](void* p) { return static_cast<float*>(p); };
-  size_t smem = bwd_smem_bytes(a.dh, 0, true);
-  cudaError_t err = allow_smem(fa_bwd_dkdv_f32_kernel<DN>, smem);
+  float* delta = a.scratch;
+  cudaError_t err = launch_delta<float, 32>(a, nullptr, delta);
   if (err != cudaSuccess) return err;
-  fa_bwd_dkdv_f32_kernel<DN><<<dim3(a.bkv, tiles), THREADS, smem, a.stream>>>(
-      cf(a.q), cf(a.k), cf(a.v), cf(a.dout), a.lse, a.delta, mf(a.dk), mf(a.dv), a.S, a.dh,
+  size_t smem = bwd_smem_bytes(a.dh, 0, true);
+  if ((err = allow_smem(fa_bwd_dkdv_f32_kernel<DN, R>, smem)) != cudaSuccess) return err;
+  fa_bwd_dkdv_f32_kernel<DN, R><<<dim3(a.bkv, tiles), THREADS, smem, a.stream>>>(
+      cf(a.q), cf(a.k), cf(a.v), cf(a.dout), a.lse, delta, mf(a.dk), mf(a.dv), a.S, a.dh,
       group, scale, a.window);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   smem = bwd_smem_bytes(a.dh, 0, false);
-  if ((err = allow_smem(fa_bwd_dq_f32_kernel<DN>, smem)) != cudaSuccess) return err;
-  fa_bwd_dq_f32_kernel<DN><<<dim3(a.bh, tiles), THREADS, smem, a.stream>>>(
-      cf(a.q), cf(a.k), cf(a.v), cf(a.dout), a.lse, a.delta, mf(a.dq), a.S, a.dh, group,
+  if ((err = allow_smem(fa_bwd_dq_f32_kernel<DN, R>, smem)) != cudaSuccess) return err;
+  fa_bwd_dq_f32_kernel<DN, R><<<dim3(a.bh, tiles), THREADS, smem, a.stream>>>(
+      cf(a.q), cf(a.k), cf(a.v), cf(a.dout), a.lse, delta, mf(a.dq), a.S, a.dh, group,
       scale, a.window);
   return cudaGetLastError();
 }
 
-bool aligned_all(const Args& a) {
+bool tma_route(const Args& a) {
   return a.dh % 8 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-         aligned16(a.dout) && aligned16(a.dq) && aligned16(a.dk) && aligned16(a.dv);
+         aligned16(a.dout);
 }
 
-template <int DK>
-cudaError_t launch_bf16(const Args& a) {
-  const int tiles = (a.S + BQ - 1) / BQ, group = a.bh / a.bkv;
-  const float scale = 1.0f / sqrtf((float)a.dh);
-  const bool vec = aligned_all(a);
-  auto cb = [](const void* p) { return static_cast<const bf16*>(p); };
-  auto mb = [](void* p) { return static_cast<bf16*>(p); };
-  size_t smem = bwd_smem_bytes(a.dh, 1, true);
-  cudaError_t err = allow_smem(fa_bwd_dkdv_bf16_kernel<DK>, smem);
+// The (bh, 2, sp) ld rows as 64 x 2 boxes (lse log2 e and D of 64 queries).
+cudaError_t ld_map(EncodeTiled encode, CUtensorMap* map, const float* ld, int bh, int sp) {
+  const cuuint64_t dims[2] = {(cuuint64_t)sp, 2 * (cuuint64_t)bh};
+  const cuuint64_t strides[1] = {(cuuint64_t)sp * sizeof(float)};
+  const cuuint32_t box[2] = {64, 2};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ld),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int NP>
+cudaError_t launch_bf16(const Args& a, int sms, int* route) {
+  const int T = (a.S + 63) / 64, group = a.bh / a.bkv, sp = padded(a.S);
+  const int chunks = bf16_chunks(a.bkv, group, a.S, dkdv_slots(a.dh, sms));
+  const long long n = (long long)a.bkv * a.S * a.dh;
+  if (a.scratch_floats < scratch_floats(a.bh, a.bkv, a.S, a.dh, 1, sms))
+    return cudaErrorInvalidValue;
+  float* ld = a.scratch;
+  float* part = ld + 2LL * a.bh * sp;
+  BwdArgs b{static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+            static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), ld,
+            static_cast<bf16*>(a.dq), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+            part, part + (chunks > 1 ? chunks * n : 0), a.bkv, a.S, sp, a.dh, group,
+            group / chunks, chunks, (T + 1) / 2, a.window, tma_route(a) ? 1 : 0,
+            1.0f / sqrtf((float)a.dh)};
+  Maps maps = {};                      // the bf16 maps unused on the copy route
+  if (b.tma) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorSymbolNotFound;
+    const void* bases[4] = {a.q, a.k, a.v, a.dout};
+    const int rows[4] = {a.bh, a.bkv, a.bkv, a.bh};
+    CUtensorMap* out[4] = {&maps.q, &maps.k, &maps.v, &maps.dout};
+    for (int i = 0; i < 4; ++i) {
+      const cudaError_t err = bf16_tile_map(encode, out[i], bases[i], rows[i], a.S, a.dh);
+      if (err != cudaSuccess) return err;
+    }
+    const cudaError_t err = ld_map(encode, &maps.ld, ld, a.bh, sp);
+    if (err != cudaSuccess) return err;
+  }
+  *route = b.tma ? ROUTE_TMA : ROUTE_COPY;
+
+  const bool vec = a.dh % 8 == 0 && aligned16(a.o) && aligned16(a.dout);
+  cudaError_t err =
+      vec ? launch_delta<bf16, 8>(a, a.lse, ld) : launch_delta<bf16, 32>(a, a.lse, ld);
   if (err != cudaSuccess) return err;
-  fa_bwd_dkdv_bf16_kernel<DK><<<dim3(a.bkv, tiles), TC_THREADS, smem, a.stream>>>(
-      cb(a.q), cb(a.k), cb(a.v), cb(a.dout), a.lse, a.delta, mb(a.dk), mb(a.dv), a.S, a.dh,
-      group, scale, a.window, vec);
+  size_t smem = dkdv_smem<NP>();
+  if ((err = allow_smem(fa_bwd_dkdv_bf16_kernel<NP>, smem)) != cudaSuccess) return err;
+  fa_bwd_dkdv_bf16_kernel<NP><<<a.bkv * chunks * b.pairs, DkdvShape<NP>::THREADS, smem,
+                                a.stream>>>(maps, b);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = bwd_smem_bytes(a.dh, 1, false);
-  if ((err = allow_smem(fa_bwd_dq_bf16_kernel<DK>, smem)) != cudaSuccess) return err;
-  fa_bwd_dq_bf16_kernel<DK><<<dim3(a.bh, tiles), TC_THREADS, smem, a.stream>>>(
-      cb(a.q), cb(a.k), cb(a.v), cb(a.dout), a.lse, a.delta, mb(a.dq), a.S, a.dh, group,
-      scale, a.window, vec);
+  if (chunks > 1) {
+    const long long blocks = (2 * n + THREADS - 1) / THREADS;
+    fa_bwd_sum_kernel<<<(unsigned)(blocks < 8 * sms ? blocks : 8 * sms), THREADS, 0,
+                        a.stream>>>(b.dk_part, b.dv_part, b.dk, b.dv, (size_t)n, chunks,
+                                    b.scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  smem = dq_smem<NP>();
+  if ((err = allow_smem(fa_bwd_dq_bf16_kernel<NP>, smem)) != cudaSuccess) return err;
+  fa_bwd_dq_bf16_kernel<NP><<<dim3(a.bh, T), DqShape<NP>::THREADS, smem, a.stream>>>(maps, b);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const Args& a, int dtype) {
+cudaError_t dispatch(const Args& a, int dtype, int sms, int* route) {
   if (dtype == 0) {
-    if (a.dh <= 32) return launch_f32<2>(a);
-    if (a.dh <= 64) return launch_f32<4>(a);
-    return launch_f32<8>(a);
+    *route = ROUTE_F32;
+    if (a.dh <= 32) return launch_f32<2, 64>(a);
+    if (a.dh <= 64) return launch_f32<4, 64>(a);
+    if (a.dh <= 128) return launch_f32<8, 64>(a);
+    return launch_f32<16, 32>(a);
   }
-  switch ((a.dh + 15) / 16) {
-    case 1: return launch_bf16<1>(a);
-    case 2: return launch_bf16<2>(a);
-    case 3: return launch_bf16<3>(a);
-    case 4: return launch_bf16<4>(a);
-    case 5: return launch_bf16<5>(a);
-    case 6: return launch_bf16<6>(a);
-    case 7: return launch_bf16<7>(a);
-    default: return launch_bf16<8>(a);
+  switch ((a.dh + 63) / 64) {
+    case 1: return launch_bf16<1>(a, sms, route);
+    case 2: return launch_bf16<2>(a, sms, route);
+    case 3: return launch_bf16<3>(a, sms, route);
+    default: return launch_bf16<4>(a, sms, route);
   }
+}
+
+cudaError_t sm_count(int device, int* sms) {
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
 }  // namespace
@@ -751,30 +1220,51 @@ int fa_bwd_max_head_dim() { return MAX_BWD_DH; }
 // Dynamic shared memory of one block of (b) (dkdv != 0) or (c) at head dim
 // dh for dtype (0 = float32, 1 = bfloat16), in bytes; -1 for another dtype.
 int fa_bwd_smem_bytes(int dh, int dtype, int dkdv) {
-  if (dtype != 0 && dtype != 1) return -1;
+  if ((dtype != 0 && dtype != 1) || dh <= 0 || dh > MAX_BWD_DH) return -1;
   return (int)bwd_smem_bytes(dh, dtype, dkdv != 0);
+}
+
+// Floats of f32 scratch that fa_backward needs for these shapes on
+// `device`, or -1 for a bad shape or dtype or if the device's SM count
+// cannot be read.
+long long fa_bwd_scratch_floats(int bh, int bkv, int S, int dh, int dtype, int device) {
+  int sms = 0;
+  if (bkv <= 0 || bh % bkv || S <= 0 || (dtype != 0 && dtype != 1) ||
+      sm_count(device, &sms) != cudaSuccess)
+    return -1;
+  return scratch_floats(bh, bkv, S, dh, dtype, sms);
 }
 
 // q, o, dout, dq (bh, S, dh); k, v, dk, dv (bkv, S, dh); all contiguous, one
 // dtype (0 = float32, 1 = bfloat16); lse (bh, S) float32 from fa_forward;
-// delta (bh, S) float32 scratch that receives D.  bh % bkv == 0,
-// 0 < dh <= 128, the 64-row tiles of S at most 65535, window 0 (causal) or
-// the local window (>= 1), as in the forward that wrote lse.
-int fa_backward(const void* q, const void* k, const void* v, const void* o,
-                const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                void* dv, int bh, int bkv, int S, int dh, int window, int dtype, int device,
-                void* stream) {
+// scratch at least fa_bwd_scratch_floats floats, 16-byte aligned.  bh % bkv
+// == 0, 0 < dh <= 256, the 64-row tiles of S at most 65535 (f32 above Dh
+// 128: the 32-row tiles), window 0 (causal) or the local window (>= 1), as
+// in the forward that wrote lse.  *route receives 0 (f32), 1 (bf16, TMA) or
+// 2 (bf16, tiles copied by a warp).
+int fa_backward(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                const float* lse, void* dq, void* dk, void* dv, float* scratch,
+                long long scratch_floats_given, int bh, int bkv, int S, int dh, int window,
+                int dtype, int device, void* stream, int* route) {
   if (bh <= 0 || bkv <= 0 || bh % bkv || S <= 0 || dh <= 0 || dh > MAX_BWD_DH || window < 0)
     return cudaErrorInvalidValue;
-  if ((S + BQ - 1) / BQ > 65535 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  const int rows = dtype == 0 ? f32_rows(dh) : 64;
+  if ((S + rows - 1) / rows > 65535 || (dtype != 0 && dtype != 1) || !aligned16(scratch))
+    return cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  const Args a{q, k, v, dout, lse, delta, dq, dk, dv, bh, bkv, S, dh, window,
-               static_cast<cudaStream_t>(stream)};
-  const cudaError_t err = dtype == 0 ? launch_delta<float>(o, a, delta)
-                                     : launch_delta<bf16>(o, a, delta);
+  // Make the device's primary context current on this host thread, as the
+  // driver's cuTensorMapEncodeTiled needs and no earlier call may have done
+  // (autograd runs the backward on threads of its own).
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return dispatch(a, dtype);
+  int sms = 0;
+  if ((err = sm_count(device, &sms)) != cudaSuccess) return err;
+  if (scratch_floats_given < scratch_floats(bh, bkv, S, dh, dtype, sms))
+    return cudaErrorInvalidValue;
+  const Args a{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch_floats_given,
+               bh, bkv, S, dh, window, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, dtype, sms, route);
 }
 
 }  // extern "C"

@@ -18,13 +18,15 @@ Training: where grad mode is on and q, k or v requires grad, a CUDA call
 goes through ``_FlashAttention``, a ``torch.autograd.Function``.  Its
 forward launches the same kernel with an f32 (BH, S) ``lse`` output and
 saves q, k, v, the output and lse; its backward launches
-``csrc/flash_attention_bwd.cu`` (three CUDA kernels: D = rowsum(dO o O),
-then dK/dV, then dQ), counted once a call in
-``LAUNCHES["flash_attention_bwd"]``; ``LSE_WRITES`` counts the forward
-launches that wrote lse.  Otherwise (serving, or ``torch.no_grad``) lse
-is not written and nothing is saved.  The backward
-takes Dh up to ``MAX_BWD_HEAD_DIM`` and raises ``NotImplementedError``
-above it.  On the CPU, autograd differentiates ``mha_ref`` itself.
+``csrc/flash_attention_bwd.cu`` (D = rowsum(dO o O), then dK/dV, for bf16
+a pass that sums the G-chunks' partials, then dQ), counted once a call in
+``LAUNCHES["flash_attention_bwd"]`` and once in ``BWD_ROUTES`` under the
+route it took: ``"tma"`` (bf16, tiles loaded by TMA), ``"copy"`` (bf16,
+where Dh % 8 != 0 or an input is not 16-byte aligned: the same kernels with
+the tiles copied by threads) or ``"f32"``.  ``LSE_WRITES`` counts the
+forward launches that wrote lse.  Otherwise (serving, or ``torch.no_grad``)
+lse is not written and nothing is saved.  The backward takes every Dh the
+forward takes.  On the CPU, autograd differentiates ``mha_ref`` itself.
 """
 
 from __future__ import annotations
@@ -37,16 +39,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import mha_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "smem_bytes", "bwd_smem_bytes",
-           "LAUNCHES", "LSE_WRITES", "MAX_HEAD_DIM", "MAX_BWD_HEAD_DIM"]
+           "LAUNCHES", "LSE_WRITES", "BWD_ROUTES", "MAX_HEAD_DIM", "MAX_BWD_HEAD_DIM"]
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 LSE_WRITES = {"flash_attention": 0}     # forward launches that wrote lse (training)
+BWD_ROUTES = {"tma": 0, "copy": 0, "f32": 0}   # backward launches by route
 MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 128          # the backward's register budget (ROADMAP: Dh 256)
+MAX_BWD_HEAD_DIM = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535             # CUDA's grid.y limit
 _BQ = 64                        # query rows per block, both kernels
+_ROUTE_NAMES = ("f32", "tma", "copy")   # the backward's route codes
 _lib: ctypes.CDLL | None = None
 _bwd_lib: ctypes.CDLL | None = None
 
@@ -69,8 +73,11 @@ def _bwd_kernels() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = _build.library("flash_attention_bwd")
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.fa_backward.argtypes = [ptr] * 10 + [i] * 7 + [ptr]
+        lib.fa_backward.argtypes = ([ptr] * 10 + [ctypes.c_longlong] + [i] * 7
+                                    + [ptr, ctypes.POINTER(i)])
         lib.fa_backward.restype = ctypes.c_int
+        lib.fa_bwd_scratch_floats.argtypes = [i] * 6
+        lib.fa_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.fa_bwd_smem_bytes.argtypes = [i, i, i]
         lib.fa_bwd_smem_bytes.restype = ctypes.c_int
         lib.fa_bwd_max_head_dim.restype = ctypes.c_int
@@ -118,18 +125,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype.  On the card, f32 inputs are computed in f32 on the CUDA cores;
     bf16 inputs with f32 accumulation and bf16 tensor-core products, with P
     split hi/lo so that the PV product keeps ~16 bits of each probability.
-    Differentiable: on the card through the backward kernel (Dh <= 128),
-    on the CPU through ``mha_ref``."""
+    Differentiable: on the card through the backward kernels, on the CPU
+    through ``mha_ref``."""
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return mha_ref(q, k, v, causal=True, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q.shape[-1] > MAX_BWD_HEAD_DIM:
-            raise NotImplementedError(
-                f"Dh={q.shape[-1]}: the flash-attention backward kernel takes Dh up to "
-                f"{MAX_BWD_HEAD_DIM} (ROADMAP queue 2: K3's backward at Dh 256)")
         return _FlashAttention.apply(q, k, v, window)
     return _forward(q, k, v, window, with_lse=False)[0]
 
@@ -167,9 +170,6 @@ def flash_attention_bwd(q, k, v, out, dout, lse, window: int = 0):
     if q.device.type != "cuda":
         raise ValueError(f"the backward kernel runs on the card; got tensors on {q.device}")
     bh, s, dh = q.shape
-    if dh > MAX_BWD_HEAD_DIM:
-        raise NotImplementedError(f"Dh={dh}: the backward kernel takes Dh up to "
-                                  f"{MAX_BWD_HEAD_DIM} (ROADMAP queue 2)")
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (bh, s):
         raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
                          f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
@@ -178,18 +178,25 @@ def flash_attention_bwd(q, k, v, out, dout, lse, window: int = 0):
                         f"{dout.dtype}, {lse.dtype}")
     if not all(t.device == q.device and t.is_contiguous() for t in (out, dout, lse)):
         raise ValueError("out, dout and lse must be contiguous and on q's device")
-    if -(-s // _BQ) > _MAX_GRID_Y:
-        raise ValueError(f"S={s} exceeds the backward's grid ({_MAX_GRID_Y} tiles of {_BQ})")
+    rows = 32 if q.dtype == torch.float32 and dh > 128 else _BQ    # the f32 tiles above 128
+    if -(-s // rows) > _MAX_GRID_Y:
+        raise ValueError(f"S={s} exceeds the backward's grid ({_MAX_GRID_Y} tiles of {rows})")
+    lib, code, dev = _bwd_kernels(), _DTYPE_CODES[q.dtype], q.device.index
+    n_scratch = lib.fa_bwd_scratch_floats(bh, k.shape[0], s, dh, code, dev)
+    if n_scratch < 0:
+        raise RuntimeError(f"flash_attention backward: no SM count for {q.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    err = _bwd_kernels().fa_backward(
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
+    route = ctypes.c_int(-1)
+    err = lib.fa_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bh, k.shape[0], s, dh, window, _DTYPE_CODES[q.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+        n_scratch, bh, k.shape[0], s, dh, window, code, dev,
+        torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: cudaError_t {err}")
     LAUNCHES["flash_attention_bwd"] += 1
+    BWD_ROUTES[_ROUTE_NAMES[route.value]] += 1
     return dq, dk, dv
 
 

@@ -7,7 +7,8 @@ with its two launches replaced by their plain versions.
 
 Inputs and the output's cotangent come from numpy with a seed.  Shapes
 cover GQA groups 1, 2 and 7 (Qwen2-0.5B's), a window that masks whole
-64-key tiles for some rows, and a ragged S.  Tolerance: float32, rtol 1e-5,
+64-key tiles for some rows, a ragged S, and RecurrentGemma-2B's head dim
+(256) at its MQA group of 10, without and with a window that bites.  Tolerance: float32, rtol 1e-5,
 with atol 1e-5 of the largest gradient entry, since dk and dv sum S·G
 products and their f32 summation order differs between the explicit
 formulas and autograd's (or XLA's) chain.  The reference's ``mha_ref`` has
@@ -27,8 +28,9 @@ from repro_torch.kernels.flash_attention.ref import lse_ref, mha_bwd_ref, mha_re
 RTOL, ATOL_SHARE = 1e-5, 1e-5
 # (BH, BKV, S, Dh, window)
 CASES = [(3, 3, 40, 16, 0), (4, 2, 64, 32, 0), (14, 2, 50, 16, 0), (7, 1, 67, 24, 0),
-         (4, 2, 150, 16, 8), (14, 2, 130, 16, 70)]
-IDS = ["g1", "g2", "g7", "g7-ragged", "window8", "g7-window70"]
+         (4, 2, 150, 16, 8), (14, 2, 130, 16, 70), (10, 1, 70, 256, 0), (10, 1, 90, 256, 40)]
+IDS = ["g1", "g2", "g7", "g7-ragged", "window8", "g7-window70", "g10-dh256",
+       "g10-dh256-window40"]
 
 
 def _inputs(bh, bkv, s, dh, seed=0):

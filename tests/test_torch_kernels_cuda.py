@@ -385,10 +385,15 @@ def _bwd_inputs(bh, bkv, s, dh, dtype, device, seed=0):
 # (G 7); a window of 100 at a ragged S (the last rows' windows start past
 # whole 64-key tiles); ragged S and Dh; Dh 128 at G 5 (Qwen2.5-14B's group);
 # Dh 128 with a window of 8 (most key tiles fully masked for most rows of a
-# query tile) at a ragged S; MQA
+# query tile) at a ragged S; MQA; RecurrentGemma-2B's training shape (Dh 256,
+# MQA at G 10; its 2,048 window does not bite at S 1,024); Dh 256 with a window
+# that bites at a
+# ragged S; a ragged S at Dh 192 (three 64-column panels); Dh 17, whose rows
+# TMA cannot read (bf16 takes the copy route)
 BWD_SHAPES = [(4, 4, 128, 16, 0), (56, 8, 1024, 64, 0), (14, 2, 300, 64, 100),
               (6, 3, 1000, 40, 0), (20, 4, 256, 128, 0), (8, 4, 520, 128, 8),
-              (7, 1, 200, 64, 0)]
+              (7, 1, 200, 64, 0), (40, 4, 1024, 256, 0), (10, 1, 333, 256, 100),
+              (6, 3, 200, 192, 0), (6, 3, 100, 17, 0)]
 
 
 @pytest.mark.parametrize("bh,bkv,s,dh,window", BWD_SHAPES)
@@ -399,12 +404,14 @@ def test_flash_attention_backward_matches_plain_and_repeats_bit_for_bit(
     out, lse = fa_ops._forward(q, k, v, window, with_lse=True)
     assert torch.equal(out, fa_ops.flash_attention(q, k, v, window=window))   # lse costs nothing
     torch.testing.assert_close(lse, lse_ref(q, k, window=window), rtol=0, atol=1e-5)
-    before = fa_ops.LAUNCHES["flash_attention_bwd"]
+    before, routes = fa_ops.LAUNCHES["flash_attention_bwd"], dict(fa_ops.BWD_ROUTES)
     got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window)
     again = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window)
     want = mha_bwd_ref(q, k, v, out, do, lse, window=window)
     torch.cuda.synchronize()
     assert fa_ops.LAUNCHES["flash_attention_bwd"] == before + 2
+    route = "f32" if dtype == torch.float32 else "tma" if dh % 8 == 0 else "copy"
+    assert fa_ops.BWD_ROUTES[route] == routes[route] + 2
     for g, a, w, x in zip(got, again, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape and torch.isfinite(g).all()
         assert torch.equal(g, a)                  # no atomics: the same bits
@@ -435,31 +442,64 @@ def test_flash_attention_trains_through_the_backward_kernel(device):
     assert fa_ops.LSE_WRITES["flash_attention"] == lse_before
 
 
-def test_flash_attention_refuses_a_gradient_above_dh_128(device):
-    q, k, v = _qkv(4, 1, 64, 256, torch.bfloat16, device)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Dh=256"):
-        fa_ops.flash_attention(q, k, v)
-    with torch.no_grad():
-        assert torch.isfinite(fa_ops.flash_attention(q, k, v)).all()   # serving still runs
+def test_flash_attention_trains_at_dh_256(device):
+    """RecurrentGemma-2B's head dim through autograd (MQA, a window that
+    bites): one forward writing lse, one backward launch on the TMA route,
+    and the gradients are the backward wrapper's."""
+    q, k, v, do = _bwd_inputs(10, 1, 200, 256, torch.bfloat16, device, seed=5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before, routes = dict(fa_ops.LAUNCHES), dict(fa_ops.BWD_ROUTES)
+    lse_before = fa_ops.LSE_WRITES["flash_attention"]
+    got = torch.autograd.grad(fa_ops.flash_attention(*leaves, window=70), leaves, do)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert fa_ops.BWD_ROUTES["tma"] == routes["tma"] + 1
+    assert fa_ops.LSE_WRITES["flash_attention"] == lse_before + 1
+    out, lse = fa_ops._forward(q, k, v, 70, with_lse=True)
+    for g, w in zip(got, fa_ops.flash_attention_bwd(q, k, v, out, do, lse, 70)):
+        assert torch.equal(g, w)
 
 
 def test_flash_attention_backward_smem_bytes(device):
-    """(b) stages k, v, q and dO tiles and lse and D rows; (c) the four
-    tiles; f32 also P and dS tiles (a one-float row pad).  Under the
-    232,448 B opt-in limit at Dh 128."""
+    """bf16: (b) holds the k and v tiles and a ring of q, dO, lse and D
+    rows, (c) the q and dO tiles and a ring of k and v, each ring 4 stages
+    deep up to Dh 64 and 2 above, each tile 64 rows of
+    64-column panels (8 KB), with 1 KB to align the panels and the
+    barriers; f32: (b) stages k, v, q and dO tiles and lse and D rows, (c)
+    the four tiles, both also P and dS tiles (a one-float row pad), of 64
+    rows up to Dh 128 and 32 above.  Every Dh up to 256 stays under the
+    232,448 B opt-in limit."""
     assert fa_ops.bwd_smem_bytes(64, dtype=torch.bfloat16) == {
-        "dkdv": 256 * 72 * 2 + 2 * 64 * 4, "dq": 256 * 72 * 2}
+        "dkdv": 1024 + 2 * 8192 + 4 * (2 * 8192 + 2 * 64 * 4) + 10 * 8,
+        "dq": 1024 + 2 * 8192 + 4 * 2 * 8192 + 9 * 8}
+    assert fa_ops.bwd_smem_bytes(128, dtype=torch.bfloat16) == {
+        "dkdv": 1024 + 4 * 8192 + 2 * (4 * 8192 + 2 * 64 * 4) + 6 * 8,
+        "dq": 1024 + 4 * 8192 + 2 * 4 * 8192 + 5 * 8}
+    assert fa_ops.bwd_smem_bytes(256, dtype=torch.bfloat16) == {
+        "dkdv": 1024 + 8 * 8192 + 2 * (8 * 8192 + 2 * 64 * 4) + 6 * 8,
+        "dq": 1024 + 8 * 8192 + 2 * 8 * 8192 + 5 * 8}
     assert fa_ops.bwd_smem_bytes(128, dtype=torch.float32) == {
         "dkdv": (256 * 129 + 2 * 64 * 65 + 128) * 4, "dq": (256 * 129 + 64 * 65) * 4}
-    assert max(fa_ops.bwd_smem_bytes(128, dtype=torch.float32).values()) <= 232_448
+    assert fa_ops.bwd_smem_bytes(256, dtype=torch.float32) == {
+        "dkdv": (128 * 257 + 2 * 32 * 33 + 64) * 4, "dq": (128 * 257 + 32 * 33) * 4}
+    for dtype in (torch.float32, torch.bfloat16):
+        assert max(max(fa_ops.bwd_smem_bytes(dh, dtype=dtype).values())
+                   for dh in range(1, 257)) <= 232_448
 
 
-def test_loss_gradients_on_the_card_match_the_cpu(device):
-    """Reduced Qwen2-0.5B in float32: ``loss_fn``'s gradient through K3 and
+# reduced Qwen2-0.5B; reduced RecurrentGemma-2B at its published head dim
+# (256) with 5 layers, so that its one local-attention layer (window 16 over
+# 100 positions) trains through K3 and its backward at Dh 256
+LOSS_GRAD_CASES = [("qwen2-0.5b", {}), ("recurrentgemma-2b", {"d_head": 256, "n_layers": 5})]
+
+
+@pytest.mark.parametrize("arch,changes", LOSS_GRAD_CASES, ids=[a for a, _ in LOSS_GRAD_CASES])
+def test_loss_gradients_on_the_card_match_the_cpu(device, arch, changes):
+    """A reduced config in float32: ``loss_fn``'s gradient through K3 and
     its backward kernel on the card against the plain versions on the CPU,
     each leaf within the CPU parity test's 1e-4 of its largest entry; K3
-    forward and backward once per layer."""
+    forward and backward once per attention layer."""
     import copy
     import dataclasses
 
@@ -468,7 +508,8 @@ def test_loss_gradients_on_the_card_match_the_cpu(device):
     from repro_torch.models import model as M
     from repro_torch.training.train_loop import batch_to
 
-    cfg = dataclasses.replace(reduced("qwen2-0.5b"), dtype="float32")
+    cfg = dataclasses.replace(reduced(arch), dtype="float32", **changes)
+    attn = sum(kind in ("attn", "local_attn", "moe") for kind in cfg.layer_kinds)
     cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     cpu.requires_grad_(True)
     card = copy.deepcopy(cpu).to(device)
@@ -480,8 +521,9 @@ def test_loss_gradients_on_the_card_match_the_cpu(device):
         loss = M.loss_fn(params, cfg, batch_to(batch, dev))
         grads.append([loss] + list(torch.autograd.grad(loss, leaves)))
     torch.cuda.synchronize()
-    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + cfg.n_layers
-    assert fa_ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + cfg.n_layers
+    assert attn >= 1
+    assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + attn
+    assert fa_ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + attn
     for want, got in zip(*grads):
         got = got.detach().cpu()
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-6
