@@ -124,23 +124,34 @@ Phases, each printing JSON lines on standard output:
   CUDA-event times beside the bound and the worst error's share of the
   tolerance; at the prefill shape also each of its CUDA kernels' device
   time;
+* ``kernel-K4-bwd`` — K4's backward (``ssd_scan_bwd.cu``, five CUDA kernels
+  a call, f32 on the CUDA cores) held against ``ssd_bwd_ref`` and float64
+  autograd of ``ssd_ref`` on the forward's own span states at Mamba2-130M's
+  training microbatch (also with heads decaying fast), a ragged length
+  across spans with h0 and the final state's cotangent, and N 256, twice
+  (the same bits), with CUDA-event times beside the bound, the plain
+  version's and autograd of ``ssd_chunked`` on the card, each CUDA kernel's
+  device time, and the worst error's share of each tolerance;
 * ``lm-parity-mamba``, ``serve-alone-mamba``, ``serve-mamba`` and
   ``serve-profile-mamba`` — the same four phases for full-width
   Mamba2-130M, whose prefill runs K4 (every serve phase also checks that
-  serving wrote no lse and ran no backward);
-* ``train-parity`` — full-width Qwen2-0.5B cut to 2 layers, float32, 2 x
-  256 tokens: the loss and every gradient leaf on the card against the
-  CPU;
-* ``train-qwen2`` — ``launch.train`` on full-width Qwen2-0.5B (24 layers,
-  bf16, 8 x 1,024 tokens a step in 2 microbatches): 30 steps with a
-  checkpoint at 20, then a restart from it that redoes steps 20-29; the
-  loss falls, the restart is bit-exact, K3 forward and backward launch 48
-  times a step; ms a step, tok/s, peak allocated bytes;
+  serving wrote no lse, kept no K4 span states and ran no backward);
+* ``train-parity`` and ``train-parity-mamba`` — full-width Qwen2-0.5B and
+  Mamba2-130M cut to 2 layers, float32, 2 x 256 tokens: the loss and every
+  gradient leaf on the card (K3 or K4 and their backward kernels) against
+  the CPU;
+* ``train-qwen2`` and ``train-mamba2`` — ``launch.train`` on full-width
+  Qwen2-0.5B and Mamba2-130M (24 layers each, bf16, 8 x 1,024 tokens a
+  step in 2 microbatches): 30 steps with a checkpoint at 20, then a restart
+  from it that redoes steps 20-29; the loss falls, the restart is
+  bit-exact, K3 (K4) forward and backward launch 48 times a step; ms a
+  step, tok/s, peak allocated bytes, and one profiled step's device time
+  by family (the kernel's forward and backward, GEMMs, the rest);
 * ``arch-train`` — one step at published width, 2 layers, of
-  Granite-3.0-3B-A800M and InternVL2-1B (with patch embeddings), and 5 of
+  Granite-3.0-3B-A800M, InternVL2-1B (with patch embeddings) and
+  Mamba2-130M (K4 and its backward once a layer), and 5 of
   RecurrentGemma-2B (its first local-attention layer, K3 and its backward
-  at Dh 256), and Mamba2-130M's training refused on the card (K4 has no
-  backward);
+  at Dh 256);
 * ``train-recurrentgemma`` — ``launch.train`` on RecurrentGemma-2B at full
   width and depth (26 layers, bf16, 4 x 1,024 tokens a step in 2
   microbatches, 8 steps): the loss falls, K3 forward and backward launch
@@ -322,6 +333,21 @@ SSD_SHAPES = [(SSD_SERVING, False), ((1, 100, 24, 64, 128), False),
               ((2, 700, 24, 64, 128), True)]      # 2 x 256 + 188: spans, ragged, h0
 SSD_CHUNK = 256                                   # Mamba2-130M's ssm_chunk
 SSD_TOL = 2e-4                                    # tests/test_kernels.py:96-99's
+# K4's backward (no TPU kernel: the reference's XLA differentiates its
+# ssd_chunked, src/repro/models/ssm.py:88).  Rows ((batch, S, H, P, N), h0 and
+# the final state's cotangent given, A scale): Mamba2-130M's training
+# microbatch (4 x 1,024, as in training: no h0, no dh), the same with heads
+# decaying fast (A x 4, tests/test_torch_kernels_cuda.py's seed-3 case), a
+# ragged S across spans with h0 and dh, and N 256 (MAX_STATE) across spans.
+# Tolerance (rtol, atol as a share of each gradient's largest entry):
+# against ssd_bwd_ref (f32, the kernels' decomposition) 1e-4, against float64
+# autograd of ssd_ref SSD_TOL (tests/test_torch_ssd_scan.py's)
+SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
+SSD_BWD_REPLACES = "src/repro/models/ssm.py:88"
+SSD_BWD_SHAPES = [(SSD_SERVING, False, 1.0), (SSD_SERVING, False, 4.0),
+                  ((2, 700, 24, 64, 128), True, 1.0), ((1, 1_024, 24, 64, 256), True, 1.0)]
+SSD_BWD_TOL = 1e-4
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
 # K3's backward (no TPU kernel: the reference's XLA differentiates its
 # model's attend, src/repro/models/attention.py:194).  Rows (BH, BKV, S, Dh,
 # window, dtype): Qwen2-0.5B's training shape (a microbatch of 4 x 1,024),
@@ -358,8 +384,10 @@ TRAIN_STEPS, TRAIN_CKPT = 30, 20
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 256
 # arch-train: one step at published width, 4 x 1,024 tokens, 2 layers, or 5
 # of RecurrentGemma-2B (rglru, rglru, local_attn, and the 2-layer rglru
-# tail: its first 2 would run no attention)
-TRAIN_ARCHS = {MOE_ARCH: ARCH_LAYERS, "internvl2-1b": ARCH_LAYERS, HYBRID_ARCH: 5}
+# tail: its first 2 would run no attention); Mamba2-130M's 2 through K4 and
+# its backward
+TRAIN_ARCHS = {MOE_ARCH: ARCH_LAYERS, "internvl2-1b": ARCH_LAYERS, HYBRID_ARCH: 5,
+               SSM_ARCH: ARCH_LAYERS}
 # train-recurrentgemma: full width and depth, bf16, 4 x 1,024 tokens a step
 # in 2 microbatches, 8 steps
 TRAIN_RG_BATCH, TRAIN_RG_SEQ, TRAIN_RG_MICRO, TRAIN_RG_STEPS = 4, 1_024, 2, 8
@@ -471,12 +499,26 @@ def _counters() -> tuple[dict, ...]:
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0 (and K3's count of forward
-    launches that wrote lse)."""
+    launches that wrote lse, K4's of those that kept their span states)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    for counts in (*_counters(), fa_ops.LSE_WRITES, fa_ops.BWD_ROUTES):
+    for counts in (*_counters(), fa_ops.LSE_WRITES, fa_ops.BWD_ROUTES, ssd_ops.STATES_KEPT):
         for name in counts:
             counts[name] = 0
+
+
+def training_work() -> dict:
+    """What only training does, counted since the last ``reset_counts``:
+    K3's backward launches and forward launches that wrote lse, K4's
+    backward launches and forward launches that kept their span states."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    return {"flash_attention_bwd": launches("flash_attention_bwd"),
+            "lse_writes": fa_ops.LSE_WRITES["flash_attention"],
+            "ssd_scan_bwd": launches("ssd_scan_bwd"),
+            "ssd_states_kept": ssd_ops.STATES_KEPT["ssd_scan"]}
 
 
 def launches(kernel: str) -> int:
@@ -532,9 +574,12 @@ def issue_floor_ms(n: int, k: int, d: int, pair_ops: int) -> float:
 
 
 def device_ms_by_kernel(torch, fn, kernels, calls: int = 10) -> dict:
-    """Device ms a call of ``fn`` spends in each CUDA kernel named in
-    ``kernels`` (matched as whole names), from ``torch.profiler`` over
-    ``calls`` calls."""
+    """Device ms a launch of each CUDA kernel named in ``kernels`` (matched
+    as whole names) takes, from ``torch.profiler`` over ``calls`` calls of
+    ``fn``, each of which launches each kernel once: the kernel's summed
+    time divided by the launches of it that the profile recorded (it drops
+    some late in a run, and the sum divided by ``calls`` then read low);
+    "not measured" where it recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -546,9 +591,13 @@ def device_ms_by_kernel(torch, fn, kernels, calls: int = 10) -> dict:
             fn()
         torch.cuda.synchronize()
     rows = device_time_rows(prof)
-    return {name: sum(r["device_ms"] for r in rows
-                      if re.search(rf"\b{name}\b", r["name"])) / calls
-            for name in kernels}
+    out = {}
+    for name in kernels:
+        hits = [r for r in rows if re.search(rf"\b{name}\b", r["name"])]
+        launched = sum(r["calls"] for r in hits)
+        out[name] = (sum(r["device_ms"] for r in hits) / launched if launched
+                     else "not measured")
+    return out
 
 
 # -- phases ----------------------------------------------------------------------
@@ -611,6 +660,7 @@ def phase_build(torch) -> dict:
                            "fa_bwd_dkdv_f32_kernel", "fa_bwd_dq_bf16_kernel",
                            "fa_bwd_dkdv_bf16_kernel", "fa_bwd_sum_kernel",
                            *(f"ssd_scan_{p}_kernel" for p in ssd_ops.PHASES),
+                           *(f"ssd_bwd_{p}_kernel" for p in ssd_ops.BWD_PHASES),
                            "lockstep_chain_kernel", "grid_lockstep_kernel")
                if n not in names]
     if missing:
@@ -1743,6 +1793,127 @@ def phase_kernel_k4(torch, smi: str) -> dict:
     return results
 
 
+def ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, with_h0: bool):
+    """(least ms, what bounds it, the route of the operations' time, ms of
+    the operations at the f32 CUDA-core rate) of K4's backward at its chunk
+    SSD_Q: x, dt, A, B, C, dy and the forward's span states read once (and
+    the final state's cotangent where it is given, with h0) and dx, ddt, dA,
+    dB, dC (and dh0 where there is an h0) written once at the HBM rate,
+    against the chunked form's operations, a multiply-add counted as 2.  Per
+    batch row and chunk of q positions C B^T over its q (q + 1) / 2 lower
+    pairs (2 N each); per head and chunk on those pairs dy (dt x)^T and M^T
+    dy (2 P each), LD B and LD^T C (2 N each) and the decays (3 each), and
+    the four full products dy h_in, (dt x) R, B R^T and the local adjoint
+    (2 q P N each).  The faster route of ``ssd_bound``'s two."""
+    chunks = -(-s // SSD_Q)
+    spans = -(-chunks // 4)                  # of the saved states, 4 chunks each
+    t_bytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 2 * h + 4 * b * s * n
+                   + b * h * spans * p * n + (2 if with_h0 else 0) * b * h * p * n
+                   ) / HBM_BYTES_PER_S
+    products = rest = 0.0
+    for s0 in range(0, s, SSD_Q):
+        q = min(SSD_Q, s - s0)
+        pairs = q * (q + 1) / 2
+        products += b * pairs * 2 * n + b * h * (pairs * (4 * p + 4 * n) + 8 * q * p * n)
+        rest += 3 * b * h * pairs
+    t_cores = (products + rest) / F32_OPS_PER_S
+    t_tf32 = 3 * products / TF32_OPS_PER_S + rest / F32_OPS_PER_S
+    t_ops = min(t_cores, t_tf32)
+    route = "3xTF32 tensor cores" if t_tf32 <= t_cores else "f32 CUDA cores"
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", route,
+            t_cores * 1e3)
+
+
+def phase_kernel_k4_bwd(torch, smi: str) -> dict:
+    """K4's backward (``ssd_scan_bwd.cu``, five CUDA kernels a call) against
+    ``ssd_bwd_ref`` (f32, its plain version) and float64 autograd of
+    ``ssd_ref`` on the forward's own span states, twice (the same bits),
+    with CUDA-event times beside the bound, the plain version's, autograd of
+    ``ssd_chunked`` on a kept graph (the CPU path's gradient, run on the
+    card), and the forward's without and with its span states kept; each
+    row's worst error as a share of the tolerance and each CUDA kernel's
+    device ms."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_ref
+    from repro_torch.models.ssm import ssd_chunked
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def shares(got, want, tol):     # each gradient's largest |err| / (tol max|want| + tol |want|)
+        return {name: float(((g.double() - w.double()).abs()
+                             / (tol * w.double().abs().max() + tol * w.double().abs())).max())
+                for name, g, w in zip(SSD_GRADS, got, want)}
+
+    results, failed = {}, []
+    for (b, s, h, p, n), with_h0, scale in SSD_BWD_SHAPES:
+        x, dt = randn(b, s, h, p), torch.nn.functional.softplus(randn(b, s, h))
+        A = -scale * torch.exp(0.5 * randn(h))
+        Bm, Cm, dy = randn(b, s, n), randn(b, s, n), randn(b, s, h, p)
+        h0, dh = (randn(b, h, p, n), randn(b, h, p, n)) if with_h0 else (None, None)
+        args = (x, dt, A, Bm, Cm)
+        _, _, states = ssd_ops._forward(*args, h0, keep_states=True)
+        got = ssd_ops.ssd_scan_bwd(*args, dy, states, dh)
+        again = ssd_ops.ssd_scan_bwd(*args, dy, states, dh)
+        want = ssd_bwd_ref(*args, dy, states, dh)
+        ins = [t.double().requires_grad_(True) for t in args + ((h0,) if with_h0 else ())]
+        y64, h64 = ssd_ref(*ins[:5], h0=ins[5] if with_h0 else None)
+        loss = (y64 * dy.double()).sum() + ((h64 * dh.double()).sum() if with_h0 else 0)
+        want64 = torch.autograd.grad(loss, ins)
+        del ins, y64, h64, loss
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(got, again))
+        to_ref = shares(got, want, SSD_BWD_TOL)
+        to_f64 = shares(got, want64, SSD_TOL)
+        ok = same and max(to_ref.values()) <= 1.0 and max(to_f64.values()) <= 1.0
+        chunk = SSD_CHUNK if s % min(SSD_CHUNK, s) == 0 else s     # the model's contract
+        tins = [t.detach().requires_grad_(True) for t in args + ((h0,) if with_h0 else ())]
+        yc, hc = ssd_chunked(*tins[:5], chunk, tins[5] if with_h0 else None)
+        outs, cots = ((yc, hc), (dy, dh)) if with_h0 else ((yc,), (dy,))
+        bound_ms, by, route, f32_core_ms = ssd_bwd_bound(b, s, h, p, n, with_h0)
+        row = {"phase": "kernel-K4-bwd", "batch": b, "s": s, "h": h, "p": p, "n": n,
+               "h0_and_dh": with_h0, "a_scale": scale, "dtype": "float32", "ok": ok,
+               "bit_identical": same,
+               "tolerance": {
+                   "ssd_bwd_ref": {"rtol": SSD_BWD_TOL, "atol_share_of_max": SSD_BWD_TOL},
+                   "float64": {"rtol": SSD_TOL, "atol_share_of_max": SSD_TOL}},
+               "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+               "worst_to_tolerance": max(to_ref.values()), "to_tolerance": to_ref,
+               "worst_to_tolerance_f64": max(to_f64.values()), "to_tolerance_f64": to_f64,
+               "plain_f32_to_tolerance_f64": max(shares(want, want64, SSD_TOL).values()),
+               "ms": cuda_ms(torch, lambda: ssd_ops.ssd_scan_bwd(*args, dy, states, dh),
+                             iters=20),
+               "plain_ms": cuda_ms(torch, lambda: ssd_bwd_ref(*args, dy, states, dh),
+                                   iters=5, warmup=1),
+               "chunked_autograd_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                   outs, tins, cots, retain_graph=True), iters=5, warmup=1),
+               "library_ms": None,
+               "forward_ms": cuda_ms(torch, lambda: ssd_ops._forward(*args, h0, False)),
+               "forward_keep_states_ms": cuda_ms(torch, lambda: ssd_ops._forward(
+                   *args, h0, True)),
+               "bound_ms": bound_ms, "bound_by": by, "bound_route": route,
+               "f32_core_bound_ms": f32_core_ms,
+               "device_ms_by_kernel": device_ms_by_kernel(
+                   torch, lambda: ssd_ops.ssd_scan_bwd(*args, dy, states, dh),
+                   [f"ssd_bwd_{ph}_kernel" for ph in ssd_ops.BWD_PHASES], calls=5),
+               "card": smi}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        emit(row)
+        results[((b, s, h, p, n), with_h0, scale)] = row
+        if not ok:
+            failed.append(((b, s, h, p, n), with_h0, scale))
+        del x, dt, A, Bm, Cm, dy, h0, dh, args, states, got, again, want, want64, tins, yc, hc
+        del outs, cots
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K4's backward disagrees with ssd_bwd_ref or float64, or "
+                             f"repeats inexactly at {failed}")
+    return results
+
+
 def _greedy_with_logits(torch, M, params, cfg, prompt, n_new, embeds=None):
     """Greedy tokens and the fp32 logits each was chosen from (prefill's
     first), through the model's prefill (with ``embeds``, if given) and
@@ -1901,10 +2072,7 @@ def phase_serve(torch, smi: str, params, arch: str, kernel: str,
     res = serve(cfg, params, prompts, new_tokens=new_tokens, partitions=SERVE_PARTITIONS,
                 batch_max=SERVE_BATCH, device=DEVICE)
     n_launches = launches(kernel)
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-
-    training_work = {"flash_attention_bwd": launches("flash_attention_bwd"),
-                     "lse_writes": fa_ops.LSE_WRITES["flash_attention"]}
+    work = training_work()
     peak = torch.cuda.max_memory_allocated()
     lat = [x * 1e3 for x in res.lpx_s]
     n_batches = len(res.batches)
@@ -1921,12 +2089,12 @@ def phase_serve(torch, smi: str, params, arch: str, kernel: str,
            "prefill_ms_per_micro_batch": 1e3 * float(np.mean([p for _, p, _ in res.batches])),
            "decode_ms_per_step": 1e3 * float(np.mean([d for _, _, d in res.batches]))
            / max(1, new_tokens - 1),
-           "launches": {kernel: n_launches}, "training_work": training_work,
+           "launches": {kernel: n_launches}, "training_work": work,
            "max_memory_allocated_bytes": peak, "card": smi}
     emit(out)
     problems = []
-    if any(training_work.values()):
-        problems.append(f"serving wrote lse or ran K3's backward: {training_work}")
+    if any(work.values()):
+        problems.append(f"serving wrote lse, kept K4's span states or ran a backward: {work}")
     if res.processed != requests:
         problems.append(f"answered {res.processed}/{requests}")
     if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
@@ -1951,6 +2119,7 @@ def phase_serve_alone(torch, smi: str, params, arch: str,
     cfg = get_config(arch)
     prompts = torch.from_numpy(np.random.default_rng([SEED, 5]).integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(DEVICE)
+    reset_counts()
     with torch.inference_mode():
         M.greedy_generate(params, cfg, prompts, 2)              # warm-up
         torch.cuda.synchronize()
@@ -1962,12 +2131,16 @@ def phase_serve_alone(torch, smi: str, params, arch: str,
         toks = M.decode_greedy(params, cfg, first, caches, SERVE_PROMPT, SERVE_NEW)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+    work = training_work()
     out = {"phase": phase, "arch": arch, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
            "new_tokens": SERVE_NEW, "prefill_ms": (t1 - t0) * 1e3,
-           "decode_ms_per_step": (t2 - t1) * 1e3 / (SERVE_NEW - 1), "card": smi}
+           "decode_ms_per_step": (t2 - t1) * 1e3 / (SERVE_NEW - 1), "training_work": work,
+           "card": smi}
     emit(out)
     if tuple(toks.shape) != (SERVE_BATCH, SERVE_NEW):
         raise AssertionError(f"{phase}: tokens of shape {tuple(toks.shape)}")
+    if any(work.values()):
+        raise AssertionError(f"{phase}: serving did training's work: {work}")
     return out
 
 
@@ -2243,12 +2416,14 @@ def phase_kernel_k3_bwd(torch, smi: str) -> dict:
     return results
 
 
-def phase_train_parity(torch, smi: str) -> dict:
-    """``loss_fn`` and its gradient for full-width Qwen2-0.5B cut to
+def phase_train_parity(torch, smi: str, arch: str = TRAIN_ARCH, kernel: str = "flash_attention",
+                       phase: str = "train-parity") -> dict:
+    """``loss_fn`` and its gradient for full-width ``arch`` cut to
     TRAIN_PARITY_LAYERS layers, float32, one SyntheticLM batch: on the card
-    (K3 and its backward kernel) against the same weights on the CPU (the
-    plain versions), the loss within rtol 1e-5 and every gradient leaf
-    within 1e-4 of its largest entry + 1e-6."""
+    (``kernel`` and its backward kernels) against the same weights on the
+    CPU (the plain versions), the loss within rtol 1e-5 and every gradient
+    leaf within 1e-4 of its largest entry + 1e-6; ``kernel`` forward and
+    backward once a layer that runs it."""
     import copy
 
     from repro_torch.configs.base import get_config
@@ -2256,8 +2431,7 @@ def phase_train_parity(torch, smi: str) -> dict:
     from repro_torch.models import model as M
     from repro_torch.training.train_loop import batch_to
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_PARITY_LAYERS,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_PARITY_LAYERS, dtype="float32")
     cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     cpu.requires_grad_(True)
     card = copy.deepcopy(cpu).to(DEVICE)
@@ -2271,30 +2445,40 @@ def phase_train_parity(torch, smi: str) -> dict:
         grads = torch.autograd.grad(loss, list(params.parameters()))
         out[name] = (float(loss.detach()), [g.detach().cpu() for g in grads],
                      time.perf_counter() - t0)
-    counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+    counts = {k: launches(k) for k in (kernel, f"{kernel}_bwd")}
     names = [n for n, _ in cpu.named_parameters()]
     worst = {n: float((g - w).abs().max()) / (1e-4 * float(w.abs().max()) + 1e-6)
              for n, g, w in zip(names, out["card"][1], out["cpu"][1])}
     loss_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    row = {"phase": "train-parity", "arch": TRAIN_ARCH, "dtype": "float32",
+    row = {"phase": phase, "arch": arch, "dtype": "float32",
            "layers": cfg.n_layers, "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
            "loss_card": out["card"][0], "loss_cpu": out["cpu"][0], "loss_rel_err": loss_rel,
            "leaves": len(names), "worst_leaf_to_tolerance": max(worst.values()),
            "worst_leaf": max(worst, key=worst.get), "launches": counts,
            "card_s": out["card"][2], "cpu_s": out["cpu"][2], "card": smi}
     emit(row)
-    if not (loss_rel <= 1e-5 and max(worst.values()) <= 1.0
-            and counts == {"flash_attention": cfg.n_layers,
-                           "flash_attention_bwd": cfg.n_layers}):
-        raise AssertionError(f"train-parity: {row}")
+    n = kernel_layers(cfg, kernel)
+    if not (loss_rel <= 1e-5 and max(worst.values()) <= 1.0 and n >= 1
+            and counts == {kernel: n, f"{kernel}_bwd": n}):
+        raise AssertionError(f"{phase}: {row}")
     return row
 
 
-def train_step_profile(torch, cfg, params, opt_state, batch) -> dict:
+# the device-time families of a training step: each kernel's forward and
+# backward, by the wrapper's kernel names (kernel_device_ms) and the backward's
+BWD_KERNEL_RE = {"flash_attention": r"\bfa_bwd_\w+_kernel\b",
+                 "ssd_scan": r"\bssd_bwd_\w+_kernel\b"}
+FAMILY = {"flash_attention": "k3", "ssd_scan": "k4"}
+
+
+def train_step_profile(torch, cfg, params, opt_state, batch,
+                       kernel: str = "flash_attention") -> dict:
     """One training step under ``torch.profiler``: its wall ms, the
-    device's busy share, device ms by kernel family (K3's forward and
-    backward, the GEMMs, the rest), the device ms of ``loss_fn``'s forward
-    and of AdamW (``record_function`` spans), and the host's top ops."""
+    device's busy share, device ms by kernel family (``kernel``'s forward
+    and backward, the GEMMs, the rest), each CUDA kernel of the two
+    families with its recorded launches and ms a launch, the device ms of
+    ``loss_fn``'s forward and of AdamW (``record_function`` spans), and the
+    host's top ops."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
@@ -2312,34 +2496,48 @@ def train_step_profile(torch, cfg, params, opt_state, batch) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_time_rows(prof)
     device_ms = sum(r["device_ms"] for r in rows)
-    k3 = kernel_device_ms(rows, "flash_attention")
-    k3_bwd = sum(r["device_ms"] for r in rows if re.search(r"\bfa_bwd_\w+_kernel\b", r["name"]))
+    fwd = kernel_device_ms(rows, kernel)
+    bwd = sum(r["device_ms"] for r in rows if re.search(BWD_KERNEL_RE[kernel], r["name"]))
     gemm = gemm_device_ms(rows)
+    family = FAMILY[kernel]
+    launched, summed = {}, {}       # by kernel name, its template instances together
+    for r in rows:
+        m = (re.search(rf"\b{kernel}(_\w+)?_kernel\b", r["name"])
+             or re.search(BWD_KERNEL_RE[kernel], r["name"]))
+        if m:
+            launched[m.group(0)] = launched.get(m.group(0), 0) + r["calls"]
+            summed[m.group(0)] = summed.get(m.group(0), 0.0) + r["device_ms"]
+    by_kernel = {k: {"launches": n, "ms_per_launch": summed[k] / n} for k, n in launched.items()}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": busy_share(device_ms, wall_ms),
-            "device_ms_by_family": {"k3_forward": k3, "k3_backward": k3_bwd, "gemm": gemm,
-                                    "other": device_ms - k3 - k3_bwd - gemm},
+            "device_ms_by_family": {f"{family}_forward": fwd, f"{family}_backward": bwd,
+                                    "gemm": gemm, "other": device_ms - fwd - bwd - gemm},
+            "device_ms_by_kernel": by_kernel,
             "spans": span_device_ms(prof, named), "top_device": rows[:8],
             "top_host": host_time_rows(prof, top=6)}
 
 
-def phase_train_qwen2(torch, smi: str) -> dict:
-    """``launch.train.train`` on full-width Qwen2-0.5B (24 layers, bf16,
+def phase_train_lm(torch, smi: str, arch: str = TRAIN_ARCH, kernel: str = "flash_attention",
+                   phase: str = "train-qwen2") -> dict:
+    """``launch.train.train`` on ``arch`` at full width and depth (bf16,
     random weights from SEED): TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
     tokens in TRAIN_MICRO microbatches, a checkpoint at TRAIN_CKPT (and at
     the end); then a second run from a directory holding only that
     checkpoint, which resumes there and redoes the steps after it.  The loss
     must fall (the mean of the last 5 below the first), the restart must be
-    bit-exact (losses, parameters and moments), and K3 forward and backward
-    must each launch 24 x TRAIN_MICRO times a step run; counts set to 0 just
-    before the first run and read just after the second."""
+    bit-exact (losses, parameters and moments), and ``kernel`` forward and
+    backward must each launch once a layer that runs it and microbatch a
+    step run (K3's forward writing lse, every backward on TMA's route; K4's
+    forward keeping its span states); counts set to 0 just before the first
+    run and read just after the second."""
     import shutil
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.train import train
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     root = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(root, ignore_errors=True)
     kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICRO,
@@ -2354,18 +2552,19 @@ def phase_train_qwen2(torch, smi: str) -> dict:
     shutil.rmtree(root / "a")           # ~5 GB a checkpoint: keep at most two on disk
     second = train(cfg, ckpt_dir=str(root / "b"), **kw)
     t2 = time.perf_counter()
-    counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+    counts = {k: launches(k) for k in (kernel, f"{kernel}_bwd")}
     routes = dict(fa_ops.BWD_ROUTES)
     lse_writes = fa_ops.LSE_WRITES["flash_attention"]
+    states_kept = ssd_ops.STATES_KEPT["ssd_scan"]
     same_params = all(torch.equal(a, b) for a, b in zip(first.params.parameters(),
                                                         second.params.parameters()))
     same_moments = all(torch.equal(first.opt_state.mu[n], second.opt_state.mu[n])
                        and torch.equal(first.opt_state.nu[n], second.opt_state.nu[n])
                        for n in first.opt_state.mu)
     steps_run = (TRAIN_STEPS - first.start) + (TRAIN_STEPS - second.start)
-    want = cfg.n_layers * TRAIN_MICRO * steps_run
+    want = kernel_layers(cfg, kernel) * TRAIN_MICRO * steps_run
     step_ms = sorted(x * 1e3 for x in first.step_s[1:])          # the first step warms up
-    row = {"phase": "train-qwen2", "arch": TRAIN_ARCH, "dtype": cfg.dtype,
+    row = {"phase": phase, "arch": arch, "dtype": cfg.dtype,
            "layers": cfg.n_layers, "params": sum(p.numel() for p in first.params.parameters()),
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
            "steps": TRAIN_STEPS, "checkpoint_step": TRAIN_CKPT, "restart_from": second.start,
@@ -2377,7 +2576,7 @@ def phase_train_qwen2(torch, smi: str) -> dict:
            "tokens_per_s": first.tokens_per_s,
            "peak_allocated_bytes": max(first.peak_bytes, second.peak_bytes),
            "launches": counts, "bwd_routes": routes, "lse_writes": lse_writes,
-           "steps_run": steps_run,
+           "ssd_states_kept": states_kept, "steps_run": steps_run,
            "first_run_s": t1 - t0, "restart_run_s": t2 - t1,
            "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
            "card": smi}
@@ -2386,9 +2585,10 @@ def phase_train_qwen2(torch, smi: str) -> dict:
     from repro_torch.training.train_loop import batch_to
 
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
-    emit({"phase": "train-qwen2-profile", "arch": TRAIN_ARCH, "step": TRAIN_STEPS,
+    emit({"phase": f"{phase}-profile", "arch": arch, "step": TRAIN_STEPS,
           **train_step_profile(torch, cfg, second.params, second.opt_state,
-                               batch_to(data.batch_at(TRAIN_STEPS), DEVICE)), "card": smi})
+                               batch_to(data.batch_at(TRAIN_STEPS), DEVICE), kernel),
+          "card": smi})
     del first, second
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2397,12 +2597,15 @@ def phase_train_qwen2(torch, smi: str) -> dict:
         problems.append("the loss did not fall")
     if not all(row["restart_bit_exact"].values()):
         problems.append(f"restart not bit-exact: {row['restart_bit_exact']}")
-    if counts != {"flash_attention": want, "flash_attention_bwd": want} or lse_writes != want:
-        problems.append(f"K3 launches {counts}, lse writes {lse_writes}, want {want} each")
-    if routes != {"tma": want, "copy": 0, "f32": 0}:
-        problems.append(f"backward routes {routes}, want {want} on TMA's")
+    kept = lse_writes if kernel == "flash_attention" else states_kept
+    if want < 1 or counts != {kernel: want, f"{kernel}_bwd": want} or kept != want:
+        problems.append(f"{kernel} launches {counts}, forwards keeping what the backward "
+                        f"reads {kept}, want {want} each")
+    if routes != ({"tma": want, "copy": 0, "f32": 0} if kernel == "flash_attention"
+                  else {"tma": 0, "copy": 0, "f32": 0}):
+        problems.append(f"K3 backward routes {routes}")
     if problems:
-        raise AssertionError(f"train-qwen2: {problems}")
+        raise AssertionError(f"{phase}: {problems}")
     return row
 
 
@@ -2461,15 +2664,13 @@ def phase_arch_train(torch, smi: str) -> dict:
     """One training step at published width, cut to TRAIN_ARCHS' layers,
     bf16, of each of them (Granite's MoE gradients; InternVL2's patch
     embeddings and prefix mask; RecurrentGemma-2B's local attention at Dh
-    256 with its RG-LRU layers), 4 x 1,024 tokens: a finite loss near log V,
-    a finite nonzero gradient norm, K3 forward and backward once an
-    attention layer, every backward on the TMA route; then
-    Mamba2-130M, whose training on the card through the launcher must raise
-    from K4's wrapper (K4 has no backward) before any K4 launch."""
+    256 with its RG-LRU layers; Mamba2-130M's SSD), 4 x 1,024 tokens: a
+    finite loss near log V, a finite nonzero gradient norm, K3 forward and
+    backward once an attention layer (every backward on the TMA route) and
+    K4 forward and backward once a Mamba-2 layer."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.launch.train import train
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_loop import batch_to, make_train_step
@@ -2490,7 +2691,8 @@ def phase_arch_train(torch, smi: str) -> dict:
         _, _, metrics = step(params, init_opt_state(params), batch)
         loss = float(metrics["loss"])
         ms = (time.perf_counter() - t0) * 1e3
-        counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+        names = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
+        counts = {k: launches(k) for k in names}
         routes = dict(fa_ops.BWD_ROUTES)
         gnorm = float(metrics["grad_norm"])
         row = {"phase": "arch-train", "arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
@@ -2501,28 +2703,14 @@ def phase_arch_train(torch, smi: str) -> dict:
                "step_ms": ms, "launches": counts, "bwd_routes": routes, "card": smi}
         emit(row)
         rows[arch] = row
-        n = kernel_layers(cfg, "flash_attention")
+        attn, ssm = kernel_layers(cfg, "flash_attention"), kernel_layers(cfg, "ssd_scan")
         if not (np.isfinite(loss) and 0.1 * row["log_vocab"] < loss < 3 * row["log_vocab"]
-                and np.isfinite(gnorm) and gnorm > 0 and n >= 1
-                and counts == {"flash_attention": n, "flash_attention_bwd": n}
-                and routes == {"tma": n, "copy": 0, "f32": 0}):
+                and np.isfinite(gnorm) and gnorm > 0 and attn + ssm >= 1
+                and counts == dict(zip(names, (attn, attn, ssm, ssm)))
+                and routes == {"tma": attn, "copy": 0, "f32": 0}):
             problems.append(arch)
         del params, batch, metrics
         torch.cuda.empty_cache()
-    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=ARCH_LAYERS)
-    refused = None
-    reset_counts()
-    try:
-        train(cfg, steps=1, batch=1, seq=cfg.ssm_chunk, seed=SEED, device=DEVICE,
-              log=lambda line: None)
-    except NotImplementedError as err:
-        refused = str(err)
-    row = {"phase": "arch-train", "arch": SSM_ARCH, "refused": refused,
-           "launches": {"ssd_scan": launches("ssd_scan")}, "card": smi}
-    emit(row)
-    rows[SSM_ARCH] = row
-    if refused is None or "K4's backward" not in refused or launches("ssd_scan"):
-        problems.append(SSM_ARCH)
     if problems:
         raise AssertionError(f"arch-train: {problems} failed their checks")
     return rows
@@ -2612,11 +2800,17 @@ def main() -> int:
         "lm-parity-granite")
     serving["flash_attention_granite"] = serving_path(MOE_ARCH, "flash_attention", "-granite")
     k4 = run("kernel-K4", phase_kernel_k4, torch, smi)
+    k4_bwd = run("kernel-K4-bwd", phase_kernel_k4_bwd, torch, smi)
     run("lm-parity-mamba", phase_lm_parity, torch, smi, SSM_ARCH, "ssd_scan",
         "lm-parity-mamba")
     serving["ssd_scan"] = serving_path(SSM_ARCH, "ssd_scan", "-mamba")
     run("train-parity", phase_train_parity, torch, smi)
-    trained = run("train-qwen2", phase_train_qwen2, torch, smi)
+    trained = run("train-qwen2", phase_train_lm, torch, smi)
+    # Mamba2-130M through K4 and its backward, as the two phases above run Qwen2-0.5B
+    run("train-parity-mamba", phase_train_parity, torch, smi, SSM_ARCH, "ssd_scan",
+        "train-parity-mamba")
+    trained_mamba = run("train-mamba2", phase_train_lm, torch, smi, SSM_ARCH, "ssd_scan",
+                        "train-mamba2")
     run("arch-train", phase_arch_train, torch, smi)
     trained_rg = run("train-recurrentgemma", phase_train_recurrentgemma, torch, smi)
     emit({"phase": "seconds", **seconds})
@@ -2701,6 +2895,21 @@ def main() -> int:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "chunked_ms": row["chunked_ms"],
         "f32_core_bound_ms": row["f32_core_bound_ms"],
+        "launches_train_mamba2": trained_mamba["launches"]["ssd_scan"],
+        "shape": dict(zip(("batch", "s", "h", "p", "n"), SSD_SERVING), dtype="float32")})
+    row = k4_bwd[SSD_BWD_SHAPES[0]]
+    summary.append({
+        "name": "ssd_scan_bwd", "route": "cuda", "source": SSD_BWD_SOURCE,
+        "replaces": SSD_BWD_REPLACES,
+        "replaces_note": "no TPU kernel: XLA differentiates the reference's ssd_chunked",
+        "launches": trained_mamba["launches"]["ssd_scan_bwd"],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "chunked_autograd_ms": row["chunked_autograd_ms"],
+        "f32_core_bound_ms": row["f32_core_bound_ms"],
+        "worst_to_tolerance": row["worst_to_tolerance"],
+        "worst_to_tolerance_f64": row["worst_to_tolerance_f64"],
+        "bit_identical": row["bit_identical"], "device_ms_by_kernel": row["device_ms_by_kernel"],
         "shape": dict(zip(("batch", "s", "h", "p", "n"), SSD_SERVING), dtype="float32")})
     for name, replaces in LOCKSTEP_REPLACES.items():
         row = whatif["rows"][(name, LOCKSTEP_SEEDS[-1])]

@@ -47,6 +47,8 @@
 //     element walks the spans in order, h_in[k + 1] = exp(sum a over span k)
 //     h_in[k] + local[k] from h0 (or 0), writes h_in in place over the
 //     local states and the final state to hout.  Elementwise, coalesced.
+//     Where a gradient is needed the wrapper keeps these entering states
+//     for the backward (ssd_scan_bwd.cu).
 //  3. ssd_scan_out_kernel, grid (batch·H, P / PT, spans), 512 threads: each
 //     block starts from its span's h_in and walks the span's chunks: y =
 //     (C B^T ⊙ L)(dt·x) + exp(cum) C h^T, stored in the model layout, then the
@@ -111,6 +113,8 @@
 #include <climits>
 #include <cstddef>
 
+#include "ssd_common.cuh"
+
 namespace {
 
 constexpr int Q = 64;                  // positions per chunk
@@ -123,7 +127,6 @@ constexpr int MAX_N = 256;
 constexpr int SPAN = 4;                // chunks a span: 256 positions
 constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory of one block
 constexpr int LDM = Q + 8;             // row stride of the cbt / M tile
-constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 // Row strides: 4 mod 32 floats for rows read as a (row, k) operand,
@@ -284,17 +287,6 @@ __device__ __forceinline__ void mma3_ldsm(float (&acc)[NB][4], const float* a, i
     for (int e = 0; e < 4; ++e) acc[t][e] += small[t][e];
 }
 
-// Inclusive sum over the warp's lanes.
-__device__ __forceinline__ float warp_scan(float v) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(FULL, v, off);
-    if (lane >= off) v += u;
-  }
-  return v;
-}
-
 // Stage `rows` rows of `cols` floats (row stride rs) into dst[nrows][ld]
 // (nrows = Q unless given), zero-filling rows rows..nrows and columns
 // cols..cols_pad.  vec: 16-byte cp.async (cols % 4 == 0, src and rs 16-byte
@@ -323,28 +315,6 @@ __device__ __forceinline__ void stage_dt(float* dst, const float* __restrict__ d
   if (threadIdx.x < Q) {
     const bool in = threadIdx.x < rows;
     cp_async4(dst + threadIdx.x, in ? dt + first + (size_t)threadIdx.x * H : dt, in ? 4 : 0);
-  }
-}
-
-// Decays of one chunk from its dt (a = dt·A), as segment sums by warp scans.
-// Warp 0: ec[i] = exp(cum_i), cum_i = sum_{s<=i} a_s, and *decay =
-// exp(cum_{Q-1}).  Warp 1: w[j] = exp(sum_{s>j} a_s).
-__device__ __forceinline__ void chunk_decays(const float* ds, float a_h, float* ec,
-                                             float* w, float* decay) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp == 0) {
-    const float s0 = warp_scan(ds[lane] * a_h);
-    const float s1 = warp_scan(ds[lane + 32] * a_h) + __shfl_sync(FULL, s0, 31);
-    ec[lane] = expf(s0);
-    ec[lane + 32] = expf(s1);
-    if (lane == 31) *decay = expf(s1);
-  } else if (warp == 1) {
-    // suffix sums in reverse order: r0 = sum_{s >= 63 - lane}, r1 = sum_{s >= 31 - lane}
-    const float r0 = warp_scan(ds[63 - lane] * a_h);
-    const float r1 = warp_scan(ds[31 - lane] * a_h) + __shfl_sync(FULL, r0, 31);
-    w[62 - lane] = expf(r0);
-    if (lane < 31) w[30 - lane] = expf(r1);
-    if (lane == 0) w[63] = 1.f;
   }
 }
 
@@ -746,23 +716,6 @@ ssd_scan_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     cp_async_commit();
   }
 }
-
-// Makes `device` current for one launch and gives the caller's device back.
-struct DeviceGuard {
-  int prev = 0;
-  bool switched = false;
-  cudaError_t err;
-  explicit DeviceGuard(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) {
-      err = cudaSetDevice(device);
-      switched = err == cudaSuccess;
-    }
-  }
-  ~DeviceGuard() {
-    if (switched) cudaSetDevice(prev);
-  }
-};
 
 // Stages of the state kernel's panels: two where they fit.
 int state_stages(int N, int pt) {

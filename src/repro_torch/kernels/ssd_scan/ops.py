@@ -18,11 +18,16 @@ see the source's note) on scratch this wrapper allocates.  ``LAUNCHES`` counts
 calls that launch them, one per call (CPython's GIL keeps the single
 ``+=`` whole across the serving path's consumer threads).
 
-The kernels have no backward yet (ROADMAP queue 2, K4's backward): their
-outputs carry no ``grad_fn``.  So a CUDA call with grad mode on and an
-input that requires grad raises ``NotImplementedError`` instead of
-returning outputs through which ``backward`` would silently give no
-gradient upstream.  On the CPU, autograd differentiates ``ssd_chunked``.
+Training: where grad mode is on and an input requires grad, a CUDA call
+goes through ``_SSDScan``, a ``torch.autograd.Function``.  Its forward
+launches the same three kernels and keeps their span-states scratch (the
+state entering each span of SPAN chunks, which the pass kernel writes there
+anyway), counted in ``STATES_KEPT``; its backward launches the five kernels
+of ``csrc/ssd_scan_bwd.cu`` (``ssd_scan_bwd``), counted once a call in
+``LAUNCHES["ssd_scan_bwd"]``, and takes ``None`` for either cotangent.
+Otherwise (serving, or ``torch.no_grad``) the scratch is dropped and
+nothing is saved, as before.  On the CPU, autograd differentiates
+``ssd_chunked``.
 """
 
 from __future__ import annotations
@@ -33,15 +38,19 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["ssd_scan", "chunk_length", "smem_bytes", "LAUNCHES", "MAX_STATE", "PHASES"]
+__all__ = ["ssd_scan", "ssd_scan_bwd", "chunk_length", "smem_bytes", "LAUNCHES",
+           "STATES_KEPT", "MAX_STATE", "PHASES", "BWD_PHASES"]
 
-LAUNCHES = {"ssd_scan": 0}
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
+STATES_KEPT = {"ssd_scan": 0}   # forward launches whose span states were kept (training)
 MAX_STATE = 256                 # the kernels' largest N (shared memory)
 PHASES = ("state", "pass", "out")     # the CUDA kernels of one call, in order
+BWD_PHASES = ("adj", "pass", "hin", "chunk", "sum")   # those of one backward call
 Q = 64                          # the kernels' chunk length
 SPAN = 4                        # the kernels' chunks per span
 
 _lib: ctypes.CDLL | None = None
+_bwd_lib: ctypes.CDLL | None = None
 
 
 def _kernels() -> ctypes.CDLL:
@@ -55,6 +64,17 @@ def _kernels() -> ctypes.CDLL:
         lib.ssd_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _bwd_kernels() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.library("ssd_scan_bwd")
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_backward.argtypes = [ptr] * 20 + [i] * 6 + [ptr]
+        lib.ssd_backward.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def chunk_length(S: int, chunk: int) -> int:
@@ -109,10 +129,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
         raise ValueError(f"no kernel for tensors on {x.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, h0)):
-        raise NotImplementedError(
-            "ssd_scan: the SSD scan kernel has no backward yet (ROADMAP queue 2, K4's "
-            "backward), so it cannot train on the card; run under torch.no_grad() or "
-            "on the CPU")
+        return _SSDScan.apply(x, dt, A, Bm, Cm, h0)
+    return _forward(x, dt, A, Bm, Cm, h0, keep_states=False)[:2]
+
+
+def _forward(x, dt, A, Bm, Cm, h0, keep_states: bool):
+    """Launch the three forward kernels; (y, h_final, the span states or
+    None)."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     n_chunks = -(-S // Q)
@@ -130,10 +153,80 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t {err}")
     LAUNCHES["ssd_scan"] += 1
-    return y, h
+    if keep_states:
+        STATES_KEPT["ssd_scan"] += 1
+        return y, h, states
+    return y, h, None
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, states, dh=None):
+    """The gradient of ``ssd_scan`` on the card: x, dt, A, Bm, Cm as the
+    forward took them, dy (B, S, H, P) the cotangent of y, ``states`` (B·H,
+    n_spans, P, N) the forward's span states, dh (B, H, P, N) the
+    cotangent of the final state or None (zero); all float32, contiguous,
+    on one card.  Returns (dx, ddt, dA, dB, dC, dh0); dB, dC and dA sum
+    over heads, positions and batch rows in a fixed order (no atomics), so
+    two calls give the same bits."""
+    _check(x, dt, A, Bm, Cm, None, x.shape[1])
+    if x.device.type != "cuda":
+        raise ValueError(f"the backward kernels run on the card; got tensors on {x.device}")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    n_chunks = -(-S // Q)
+    want = {"dy": (dy, (B, S, H, P)), "states": (states, (B * H, -(-n_chunks // SPAN), P, N))}
+    if dh is not None:
+        want["dh"] = (dh, (B, H, P, N))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    adj = torch.empty((B * H, n_chunks, P, N), **f32)
+    hin = torch.empty((B * H, n_chunks, P, N), **f32)
+    asum = torch.empty((B * H, n_chunks), **f32)
+    dApart = torch.empty((B * H, n_chunks), **f32)
+    dBh = torch.empty((B, S, H, N), **f32)
+    dCh = torch.empty((B, S, H, N), **f32)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dA, dB, dC = torch.empty_like(A), torch.empty_like(Bm), torch.empty_like(Cm)
+    dh0 = torch.empty((B, H, P, N), **f32)
+    err = _bwd_kernels().ssd_backward(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        dy.data_ptr(), None if dh is None else dh.data_ptr(), states.data_ptr(),
+        adj.data_ptr(), asum.data_ptr(), hin.data_ptr(), dBh.data_ptr(), dCh.data_ptr(),
+        dApart.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dh0.data_ptr(), B, S, H, P, N, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed: cudaError_t {err}")
+    LAUNCHES["ssd_scan_bwd"] += 1
+    return dx, ddt, dA, dB, dC, dh0
+
+
+class _SSDScan(torch.autograd.Function):
+    """K4 with its gradient: the forward kernels keeping their span states,
+    the backward kernels reading them."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0):
+        y, h, states = _forward(x, dt, A, Bm, Cm, h0, keep_states=True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, states)
+        ctx.has_h0 = h0 is not None
+        ctx.set_materialize_grads(False)     # an unused output's cotangent stays None
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bm, Cm, states = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dh = None if dh is None else dh.contiguous()
+        dx, ddt, dA, dB, dC, dh0 = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, states, dh)
+        return dx, ddt, dA, dB, dC, dh0 if ctx.has_h0 else None
 
 
 def smem_bytes(n: int) -> dict[str, int]:
     """Dynamic shared memory of one block of each phase at state size ``n``,
     in bytes (as the kernels' source computes it)."""
     return {name: _kernels().ssd_smem_bytes(i, n) for i, name in enumerate(PHASES)}
+

@@ -6,18 +6,18 @@ automatic resume from the latest complete step, which is bit-exact (the
 data is a pure function of the step).  Weights are random, drawn from
 ``--seed``.  On the card every attention layer runs kernel K3 forward and
 its backward kernels, at every head dim the configs use (64, 128 and
-RecurrentGemma-2B's 256).  A config whose training the card cannot run
-yet raises ``NotImplementedError`` from the kernel's wrapper in the first
-step's forward, before any update: a Mamba-2 layer (K4 has no backward
-yet, ROADMAP queue 2).  ``--mesh`` is refused: the multi-device slice is
-ROADMAP queue 1, item 9.
+RecurrentGemma-2B's 256), and every Mamba-2 layer kernel K4 forward
+(keeping its span states) and its backward kernels.  ``--mesh`` is
+refused: the multi-device slice is ROADMAP queue 1, item 9.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --reduced \\
         --device cpu --steps 20 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --steps 30 \\
         --batch 8 --seq 1024 --microbatches 2      # full width, on the card
-    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
         --steps 8 --batch 4 --seq 1024 --microbatches 2   # Dh 256, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --steps 30 \\
+        --batch 8 --seq 1024 --microbatches 2      # K4 and its backward, on the card
 """
 
 from __future__ import annotations

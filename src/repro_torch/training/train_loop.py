@@ -13,8 +13,8 @@ as ``jax.grad`` gives it.
 
 The parameters must require grad: ``params.requires_grad_(True)`` (they are
 frozen at creation, for serving).  On the card every attention layer runs
-kernel K3 forward and backward; a Mamba-2 layer's kernel K4 has no backward
-yet and raises (ROADMAP queue 2).
+kernel K3 forward and backward, and every Mamba-2 layer kernel K4 forward
+and backward.
 """
 
 from __future__ import annotations

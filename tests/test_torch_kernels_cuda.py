@@ -490,16 +490,20 @@ def test_flash_attention_backward_smem_bytes(device):
 
 # reduced Qwen2-0.5B; reduced RecurrentGemma-2B at its published head dim
 # (256) with 5 layers, so that its one local-attention layer (window 16 over
-# 100 positions) trains through K3 and its backward at Dh 256
-LOSS_GRAD_CASES = [("qwen2-0.5b", {}), ("recurrentgemma-2b", {"d_head": 256, "n_layers": 5})]
+# 100 positions) trains through K3 and its backward at Dh 256; reduced
+# Mamba-2 (2 layers, chunk 16) over 96 positions, through K4 and its backward
+LOSS_GRAD_CASES = [("qwen2-0.5b", {}, 100),
+                   ("recurrentgemma-2b", {"d_head": 256, "n_layers": 5}, 100),
+                   ("mamba2-130m", {}, 96)]
 
 
-@pytest.mark.parametrize("arch,changes", LOSS_GRAD_CASES, ids=[a for a, _ in LOSS_GRAD_CASES])
-def test_loss_gradients_on_the_card_match_the_cpu(device, arch, changes):
-    """A reduced config in float32: ``loss_fn``'s gradient through K3 and
-    its backward kernel on the card against the plain versions on the CPU,
-    each leaf within the CPU parity test's 1e-4 of its largest entry; K3
-    forward and backward once per attention layer."""
+@pytest.mark.parametrize("arch,changes,seq", LOSS_GRAD_CASES,
+                         ids=[a for a, _, _ in LOSS_GRAD_CASES])
+def test_loss_gradients_on_the_card_match_the_cpu(device, arch, changes, seq):
+    """A reduced config in float32: ``loss_fn``'s gradient through K3 or K4
+    and their backward kernels on the card against the plain versions on
+    the CPU, each leaf within the CPU parity test's 1e-4 of its largest
+    entry; each kernel forward and backward once per layer that runs it."""
     import copy
     import dataclasses
 
@@ -508,22 +512,27 @@ def test_loss_gradients_on_the_card_match_the_cpu(device, arch, changes):
     from repro_torch.models import model as M
     from repro_torch.training.train_loop import batch_to
 
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
     cfg = dataclasses.replace(reduced(arch), dtype="float32", **changes)
     attn = sum(kind in ("attn", "local_attn", "moe") for kind in cfg.layer_kinds)
+    ssm = sum(kind == "ssm" for kind in cfg.layer_kinds)
     cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     cpu.requires_grad_(True)
     card = copy.deepcopy(cpu).to(device)
-    batch = SyntheticLM(cfg.vocab_size, 100, 2, seed=1).batch_at(0)
+    batch = SyntheticLM(cfg.vocab_size, seq, 2, seed=1).batch_at(0)
     grads = []
-    before = dict(fa_ops.LAUNCHES)
+    before = {**fa_ops.LAUNCHES, **ssd_ops.LAUNCHES}
     for params, dev in ((cpu, "cpu"), (card, device)):
         leaves = list(params.parameters())
         loss = M.loss_fn(params, cfg, batch_to(batch, dev))
         grads.append([loss] + list(torch.autograd.grad(loss, leaves)))
     torch.cuda.synchronize()
-    assert attn >= 1
+    assert attn + ssm >= 1
     assert fa_ops.LAUNCHES["flash_attention"] == before["flash_attention"] + attn
     assert fa_ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + attn
+    assert ssd_ops.LAUNCHES["ssd_scan"] == before["ssd_scan"] + ssm
+    assert ssd_ops.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + ssm
     for want, got in zip(*grads):
         got = got.detach().cpu()
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-6
@@ -551,12 +560,14 @@ def _ssd_inputs(b, s, h, p, n, device, seed=0, with_h0=False):
 # against the kernels' 64-position chunk, h0 given, P/N/H off the tiles;
 # several 256-position spans with a ragged last span and h0, and several
 # spans at MAX_STATE
-@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", [
-    (4, 1024, 24, 64, 128, 256, False), (1, 100, 24, 64, 128, 256, False),
-    (2, 256, 3, 64, 128, 256, True), (2, 100, 5, 20, 33, 100, True),
-    (1, 1, 1, 1, 1, 1, False), (3, 192, 7, 48, 16, 64, False),
-    (1, 130, 2, 16, 256, 130, True), (2, 700, 5, 64, 128, 700, True),
-    (1, 1024, 2, 32, 256, 256, True)])
+SSD_SHAPES = [(4, 1024, 24, 64, 128, 256, False), (1, 100, 24, 64, 128, 256, False),
+              (2, 256, 3, 64, 128, 256, True), (2, 100, 5, 20, 33, 100, True),
+              (1, 1, 1, 1, 1, 1, False), (3, 192, 7, 48, 16, 64, False),
+              (1, 130, 2, 16, 256, 130, True), (2, 700, 5, 64, 128, 700, True),
+              (1, 1024, 2, 32, 256, 256, True)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", SSD_SHAPES)
 def test_ssd_scan_kernel_matches_plain(device, b, s, h, p, n, chunk, with_h0):
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
@@ -639,37 +650,105 @@ def test_ssd_scan_wrapper_rejects_what_the_kernel_does_not_take(device):
         ssd_ops.ssd_scan(x.bfloat16(), dt, A, Bm, Cm, chunk=64)
 
 
-def test_ssd_scan_refuses_inputs_that_require_grad(device):
-    """K4 has no backward: with a gradient asked for it raises rather than
-    return outputs through which training would get no gradient."""
+# K4's backward against ssd_bwd_ref (f32, the kernels' own decomposition)
+# and float64 autograd of ssd_ref, each gradient within rtol 1e-4 and 1e-4 of
+# its largest entry (2e-4 against float64), as tests/test_torch_ssd_scan.py
+# holds ssd_bwd_ref to the reference on the CPU
+SSD_BWD_TOL = 1e-4
+
+
+def _ssd_bwd_close(got, want, tol):
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want):
+        g, w = g.double(), w.double()
+        limit = tol * float(w.abs().max()) + tol * w.abs()
+        assert bool(((g - w).abs() <= limit).all()), (name, float((g - w).abs().max()))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", SSD_SHAPES)
+def test_ssd_scan_backward_matches_plain_and_repeats_bit_for_bit(device, b, s, h, p, n,
+                                                                  chunk, with_h0):
+    """Where the forward takes h0, the backward is given the final state's
+    cotangent too; one ``ssd_scan_bwd`` launch a call."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import span_states_ref, ssd_bwd_ref, ssd_ref
+
+    x, dt, A, Bm, Cm, *h0 = _ssd_inputs(b, s, h, p, n, device, seed=9, with_h0=with_h0)
+    h0 = h0[0] if h0 else None
+    gen = torch.Generator(device=device).manual_seed(10)
+    dy = torch.randn((b, s, h, p), generator=gen, device=device)
+    dh = torch.randn((b, h, p, n), generator=gen, device=device) if with_h0 else None
+    _, _, states = ssd_ops._forward(x, dt, A, Bm, Cm, h0, keep_states=True)
+    before = ssd_ops.LAUNCHES["ssd_scan_bwd"]
+    got = ssd_ops.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, states, dh)
+    again = ssd_ops.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, states, dh)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd_scan_bwd"] == before + 2
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    torch.testing.assert_close(states, span_states_ref(x, dt, A, Bm, Cm, h0),
+                               rtol=SSD_TOL, atol=SSD_TOL)
+    _ssd_bwd_close(got, ssd_bwd_ref(x, dt, A, Bm, Cm, dy, states, dh), SSD_BWD_TOL)
+    ins = [t.double().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    if h0 is not None:
+        ins.append(h0.double().requires_grad_(True))
+    y64, h64 = ssd_ref(*ins[:5], h0=ins[5] if h0 is not None else None)
+    loss = (y64 * dy.double()).sum() + ((h64 * dh.double()).sum() if dh is not None else 0)
+    _ssd_bwd_close(got, torch.autograd.grad(loss, ins), SSD_TOL)
+
+
+def test_ssd_scan_gradients_flow_through_the_function(device):
+    """With a gradient asked for, ``ssd_scan`` returns outputs with a
+    ``grad_fn`` whose backward launches the backward kernels once, with the
+    gradients that autograd of ``ssd_chunked`` (the wrapper's CPU path)
+    gives on the CPU; under ``torch.no_grad`` it launches the forward alone
+    and keeps nothing."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    x, dt, A, Bm, Cm = _ssd_inputs(1, 64, 2, 8, 16, device)
-    before = ssd_ops.LAUNCHES["ssd_scan"]
-    for t in (x, A):
-        t.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="K4's backward"):
-            ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
-        t.requires_grad_(False)
-    assert ssd_ops.LAUNCHES["ssd_scan"] == before
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(2, 300, 3, 16, 8, device, seed=11, with_h0=True)
+    dy = torch.randn((2, 300, 3, 16), generator=torch.Generator(device=device).manual_seed(12),
+                     device=device)
+    grads = []
+    for dev in ("cpu", device):
+        ins = [t.to(dev).requires_grad_(True) for t in (x, dt, A, Bm, Cm, h0)]
+        before = dict(ssd_ops.LAUNCHES)
+        kept = ssd_ops.STATES_KEPT["ssd_scan"]
+        y, _ = ssd_ops.ssd_scan(*ins[:5], chunk=300, h0=ins[5])
+        assert y.grad_fn is not None
+        grads.append(torch.autograd.grad(y, ins, dy.to(dev)))
+        launched = 1 if dev == device else 0
+        assert ssd_ops.LAUNCHES == {"ssd_scan": before["ssd_scan"] + launched,
+                                    "ssd_scan_bwd": before["ssd_scan_bwd"] + launched}
+        assert ssd_ops.STATES_KEPT["ssd_scan"] == kept + launched
+    for got, want in zip(grads[1], grads[0]):
+        got, want = got.cpu().double(), want.double()
+        assert float((got - want).abs().max()) <= SSD_BWD_TOL * float(want.abs().max())
     x.requires_grad_(True)
+    before, kept = dict(ssd_ops.LAUNCHES), ssd_ops.STATES_KEPT["ssd_scan"]
     with torch.no_grad():
-        y, _ = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
-    assert y.grad_fn is None and ssd_ops.LAUNCHES["ssd_scan"] == before + 1
+        y, _ = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=300)
+    assert y.grad_fn is None and ssd_ops.STATES_KEPT["ssd_scan"] == kept
+    assert ssd_ops.LAUNCHES == {"ssd_scan": before["ssd_scan"] + 1,
+                                "ssd_scan_bwd": before["ssd_scan_bwd"]}
 
 
-def test_train_refuses_mamba2_on_the_card_before_any_update(device):
-    """The launcher owns no refusal of its own: K4's wrapper raises in the
-    first step's forward, so no update runs and no K4 launch is made."""
+def test_train_runs_a_step_of_mamba2_on_the_card(device):
+    """``launch.train`` on reduced Mamba-2: one step through K4 forward and
+    its backward once per layer and microbatch, a finite loss near ln V."""
+    import math
+
     from repro_torch.configs.base import reduced
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.train import train
 
-    before = ssd_ops.LAUNCHES["ssd_scan"]
-    with pytest.raises(NotImplementedError, match="K4's backward"):
-        train(reduced("mamba2-130m"), steps=1, batch=1, seq=32, device=device,
-              log=lambda line: None)
-    assert ssd_ops.LAUNCHES["ssd_scan"] == before
+    cfg = reduced("mamba2-130m")
+    before = dict(ssd_ops.LAUNCHES)
+    res = train(cfg, steps=1, batch=2, seq=32, microbatches=2, device=device,
+                log=lambda line: None)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == {"ssd_scan": before["ssd_scan"] + 2 * cfg.n_layers,
+                                "ssd_scan_bwd": before["ssd_scan_bwd"] + 2 * cfg.n_layers}
+    assert len(res.losses) == 1 and math.isfinite(res.losses[0])
+    assert 0.5 * math.log(cfg.vocab_size) < res.losses[0] < 2 * math.log(cfg.vocab_size)
+    assert all(bool(torch.isfinite(p).all()) for p in res.params.parameters())
 
 
 def test_mamba_forward_launches_the_kernel_once_per_layer(device):

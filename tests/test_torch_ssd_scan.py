@@ -9,8 +9,20 @@ the CUDA kernel is held against ``ssd_ref`` on the card
 softplus of a normal; A = -exp(0.5 normal)).  The tolerance is
 ``tests/test_kernels.py``'s 2e-4 (float32 sums in other orders).  Sequence
 lengths are multiples of ``min(chunk, S)``, which the reference asserts.
+
+The backward: the plain ``ssd_bwd_ref`` (explicit chunked formulas in the
+backward kernels' phases, which the CUDA kernels are held to on the card)
+against ``jax.vjp`` of the JAX package's ``ssd_chunked``, against autograd
+of the port's ``ssd_chunked``, and against float64 autograd of ``ssd_ref``;
+then the ``torch.autograd.Function`` that carries the kernels, driven on
+CPU tensors with its two launches replaced by their plain versions.
+Inputs and cotangents come from numpy with a seed.  Tolerance: float32,
+rtol 1e-4 with atol 1e-4 of each gradient's largest entry, since dB, dC
+and dA sum over heads and positions in another order than XLA's (or
+autograd's) chain; against float64, ``TOL`` scaled the same way.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +33,7 @@ from repro.kernels.ssd_scan import ops as jax_ops
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels.ssd_scan import ops
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan.ref import span_states_ref, ssd_bwd_ref, ssd_ref
 from repro_torch.models.ssm import ssd_chunked, ssd_recurrent
 
 TOL = 2e-4
@@ -230,3 +242,152 @@ def test_tf32_split_is_what_keeps_the_kernel_within_its_tolerance():
 
     assert outside(split=True) == (0, 0)
     assert outside(split=False)[0] > y64.numel() // 10
+
+
+# -- the backward ----------------------------------------------------------------
+
+BWD_RTOL = BWD_ATOL_SHARE = 1e-4
+# (b, s, h, p, n, chunk, h0, dh, A scale): a ragged last 64-position chunk
+# with h0 and dh; one whole chunk; 11 chunks (three spans, the last ragged,
+# and a ragged last chunk) with h0; dh alone; heads decaying fast (A x 4)
+# with h0 and dh; Mamba2-130M's P and N
+BWD_CASES = [(2, 100, 3, 16, 8, 50, True, True, 1.0), (1, 64, 2, 8, 4, 64, False, False, 1.0),
+             (1, 700, 2, 8, 5, 100, True, False, 1.0), (2, 96, 3, 16, 8, 32, False, True, 1.0),
+             (1, 300, 3, 16, 8, 60, True, True, 4.0), (1, 128, 2, 64, 128, 64, False, True, 1.0)]
+BWD_IDS = ["h0-dh-ragged-chunk", "one-chunk", "spans-h0", "dh", "fast-decay", "p64-n128"]
+GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+
+
+def _bwd_inputs(b, s, h, p, n, with_h0, with_dh, scale, seed=5):
+    """x, dt, A, Bm, Cm, h0 or None, dy, dh or None: numpy float32."""
+    x, dt, A, Bm, Cm, *h0 = _inputs(b, s, h, p, n, seed=seed, with_h0=with_h0)
+    rng = np.random.default_rng(seed + 100)
+    dy = rng.standard_normal((b, s, h, p), dtype=np.float32)
+    dh = rng.standard_normal((b, h, p, n), dtype=np.float32) if with_dh else None
+    return x, dt, (scale * A).astype(np.float32), Bm, Cm, (h0[0] if h0 else None), dy, dh
+
+
+def _bwd_close(got, want, rtol=BWD_RTOL, share=BWD_ATOL_SHARE):
+    for name, g, w in zip(GRADS, got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=share * np.abs(w).max(), err_msg=name)
+
+
+def _plain_bwd(x, dt, A, Bm, Cm, h0, dy, dh):
+    """``ssd_bwd_ref`` from the span states of ``span_states_ref``; dh0 is
+    returned only where there was an h0."""
+    args = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)]
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    states = span_states_ref(*args, th0)
+    got = ssd_bwd_ref(*args, torch.from_numpy(dy), states,
+                      None if dh is None else torch.from_numpy(dh))
+    return [t.numpy() for t in got[:5]] + ([got[5].numpy()] if h0 is not None else [])
+
+
+def _autograd(fn, x, dt, A, Bm, Cm, h0, dy, dh, dtype=torch.float32):
+    """Gradients of <y, dy> + <h_final, dh> through ``fn`` by autograd."""
+    ins = [torch.from_numpy(a).to(dtype).requires_grad_(True) for a in (x, dt, A, Bm, Cm)]
+    if h0 is not None:
+        ins.append(torch.from_numpy(h0).to(dtype).requires_grad_(True))
+    y, hT = fn(*ins[:5], None if h0 is None else ins[5])
+    loss = (y * torch.from_numpy(dy).to(dtype)).sum()
+    if dh is not None:
+        loss = loss + (hT * torch.from_numpy(dh).to(dtype)).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, ins)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0,with_dh,scale", BWD_CASES, ids=BWD_IDS)
+def test_ssd_bwd_ref_matches_jax_vjp_of_ssd_chunked(b, s, h, p, n, chunk, with_h0, with_dh,
+                                                    scale):
+    x, dt, A, Bm, Cm, h0, dy, dh = _bwd_inputs(b, s, h, p, n, with_h0, with_dh, scale)
+    args = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)] + (
+        [jnp.asarray(h0)] if with_h0 else [])
+    out, vjp = jax.vjp(lambda *a: jax_ssd_chunked(*a[:5], chunk, *a[5:]), *args)
+    want = vjp((jnp.asarray(dy), jnp.zeros_like(out[1]) if dh is None else jnp.asarray(dh)))
+    _bwd_close(_plain_bwd(x, dt, A, Bm, Cm, h0, dy, dh), want)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0,with_dh,scale", BWD_CASES, ids=BWD_IDS)
+def test_ssd_bwd_ref_matches_autograd_of_ssd_chunked(b, s, h, p, n, chunk, with_h0, with_dh,
+                                                     scale):
+    inputs = _bwd_inputs(b, s, h, p, n, with_h0, with_dh, scale)
+    want = _autograd(lambda *a: ssd_chunked(*a[:5], chunk, h0=a[5]), *inputs)
+    _bwd_close(_plain_bwd(*inputs), want)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0,with_dh,scale", BWD_CASES, ids=BWD_IDS)
+def test_ssd_bwd_ref_is_within_tolerance_of_float64(b, s, h, p, n, chunk, with_h0, with_dh,
+                                                    scale):
+    inputs = _bwd_inputs(b, s, h, p, n, with_h0, with_dh, scale)
+    want = _autograd(lambda *a: ssd_ref(*a[:5], h0=a[5]), *inputs, dtype=torch.float64)
+    _bwd_close(_plain_bwd(*inputs), want, rtol=TOL, share=TOL)
+
+
+def test_span_states_ref_is_the_state_entering_each_span():
+    x, dt, A, Bm, Cm, h0 = _torch(_inputs(2, 600, 3, 8, 4, seed=6, with_h0=True))
+    states = span_states_ref(x, dt, A, Bm, Cm, h0)
+    span = ops.SPAN * ops.Q
+    assert states.shape == (2 * 3, 3, 8, 4)
+    torch.testing.assert_close(states[:, 0], h0.reshape(6, 8, 4), rtol=0, atol=0)
+    for k in (1, 2):
+        _, hk = ssd_ref(x[:, :k * span], dt[:, :k * span], A, Bm[:, :k * span],
+                        Cm[:, :k * span], h0)
+        torch.testing.assert_close(states[:, k], hk.reshape(6, 8, 4), rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def plain_launches(monkeypatch):
+    """``_SSDScan``'s two launches replaced by their plain versions, counted,
+    so the Function runs on CPU tensors."""
+    calls = {"forward": [], "backward": []}
+
+    def forward(x, dt, A, Bm, Cm, h0, keep_states):
+        calls["forward"].append(keep_states)
+        y, h = ssd_chunked(x, dt, A, Bm, Cm, x.shape[1], h0)
+        return y, h, span_states_ref(x, dt, A, Bm, Cm, h0)
+
+    def backward(x, dt, A, Bm, Cm, dy, states, dh=None):
+        calls["backward"].append((dy.is_contiguous(), states, dh is None))
+        return ssd_bwd_ref(x, dt, A, Bm, Cm, dy, states, dh)
+
+    monkeypatch.setattr(ops, "_forward", forward)
+    monkeypatch.setattr(ops, "ssd_scan_bwd", backward)
+    return calls
+
+
+@pytest.mark.parametrize("used", ["y", "h_final", "both"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero_state", "h0"])
+def test_autograd_function_carries_the_kernels_gradient(plain_launches, used, with_h0):
+    """The Function keeps the forward's span states for its backward, takes
+    None for the cotangent of an output that is not used, and hands back
+    the gradients of x, dt, A, Bm, Cm and h0 (None without an h0, which
+    autograd would refuse otherwise)."""
+    x, dt, A, Bm, Cm, h0, dy, dh = _bwd_inputs(2, 300, 3, 16, 8, with_h0, True, 1.0, seed=7)
+    dy = dy if used != "h_final" else np.zeros_like(dy)
+    dh = dh if used != "y" else None
+    want = _autograd(lambda *a: ssd_chunked(*a[:5], 300, h0=a[5]), x, dt, A, Bm, Cm, h0, dy, dh)
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in (x, dt, A, Bm, Cm)]
+    th0 = None if h0 is None else torch.from_numpy(h0).requires_grad_(True)
+    y, hT = ops._SSDScan.apply(*ins, th0)
+    loss = 0.0
+    if used != "h_final":
+        loss = loss + (y * torch.from_numpy(dy)).sum()
+    if used != "y":
+        loss = loss + (hT * torch.from_numpy(dh)).sum()
+    got = torch.autograd.grad(loss, ins + ([th0] if th0 is not None else []))
+    assert plain_launches["forward"] == [True] and len(plain_launches["backward"]) == 1
+    contiguous, states, no_dh = plain_launches["backward"][0]
+    assert contiguous and no_dh == (used == "y")
+    torch.testing.assert_close(states, span_states_ref(*ins, th0).detach(), rtol=0, atol=0)
+    _bwd_close([g.numpy() for g in got], want)
+
+
+def test_wrapper_on_the_cpu_differentiates_the_plain_version():
+    x, dt, A, Bm, Cm, h0, dy, dh = _bwd_inputs(2, 96, 3, 16, 8, True, True, 1.0, seed=8)
+    before = dict(ops.LAUNCHES)
+    got = _autograd(lambda *a: ops.ssd_scan(*a[:5], chunk=32, h0=a[5]), x, dt, A, Bm, Cm, h0,
+                    dy, dh)
+    assert ops.LAUNCHES == before                  # no kernel on the CPU
+    want = _autograd(lambda *a: ssd_chunked(*a[:5], 32, h0=a[5]), x, dt, A, Bm, Cm, h0, dy, dh)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

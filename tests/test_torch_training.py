@@ -192,7 +192,7 @@ def test_loss_chunk_equals_the_unchunked_loss():
                                TM.loss_fn(params, tcfg, batch), rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-1b", "mamba2-130m"])
 def test_gradients_match_jax_grad_of_the_reference(arch):
     jcfg, tcfg, tree, params = _setup(arch)
     batch = _data(tcfg, 32, 2, seed=2).batch_at(0)
