@@ -124,14 +124,15 @@ Phases, each printing JSON lines on standard output:
   CUDA-event times beside the bound and the worst error's share of the
   tolerance; at the prefill shape also each of its CUDA kernels' device
   time;
-* ``kernel-K4-bwd`` — K4's backward (``ssd_scan_bwd.cu``, five CUDA kernels
-  a call, f32 on the CUDA cores) held against ``ssd_bwd_ref`` and float64
-  autograd of ``ssd_ref`` on the forward's own span states at Mamba2-130M's
-  training microbatch (also with heads decaying fast), a ragged length
-  across spans with h0 and the final state's cotangent, and N 256, twice
-  (the same bits), with CUDA-event times beside the bound, the plain
-  version's and autograd of ``ssd_chunked`` on the card, each CUDA kernel's
-  device time, and the worst error's share of each tolerance;
+* ``kernel-K4-bwd`` — K4's backward (``ssd_scan_bwd.cu``, three CUDA
+  kernels a call, 3xTF32 on the tensor cores) held against ``ssd_bwd_ref``
+  and float64 autograd of ``ssd_ref`` on the forward's own span states at
+  Mamba2-130M's training microbatch (also with heads decaying fast), a
+  ragged length across spans with h0 and the final state's cotangent, and
+  N 256, twice (the same bits), with CUDA-event times beside the bound, the
+  plain version's and autograd of ``ssd_chunked`` on the card, each CUDA
+  kernel's device time (none may be missing) and their sum beside the
+  call's event time, and the worst error's share of each tolerance;
 * ``lm-parity-mamba``, ``serve-alone-mamba``, ``serve-mamba`` and
   ``serve-profile-mamba`` — the same four phases for full-width
   Mamba2-130M, whose prefill runs K4 (every serve phase also checks that
@@ -164,10 +165,11 @@ then each phase's seconds, the ``{"kernels": [...]}`` summary, the
 when no card is present, when run outside a checkout of the repository, or
 when any phase fails.  Imports nothing of JAX or of the JAX package.
 
-``python3 chip_smoke.py --compare-parent DIR`` runs only ``kernel-K3-bwd``'s
-bf16 rows up to Dh 128 of the checkout at DIR (e.g. a ``git archive`` of
-the parent commit) and of this one, in turns (parent, change, change,
-parent), each with its own ``chip_smoke.py`` and package.
+``python3 chip_smoke.py --compare-parent DIR`` runs only ``kernel-K4-bwd``'s
+four rows of the checkout at DIR (e.g. a ``git archive`` of the parent
+commit) and of this one, in turns (parent, change, change, parent), each
+with its own ``chip_smoke.py`` and package, and holds K4's forward outputs
+of the two checkouts on the same seeded inputs bit for bit.
 """
 
 from __future__ import annotations
@@ -578,25 +580,31 @@ def device_ms_by_kernel(torch, fn, kernels, calls: int = 10) -> dict:
     as whole names) takes, from ``torch.profiler`` over ``calls`` calls of
     ``fn``, each of which launches each kernel once: the kernel's summed
     time divided by the launches of it that the profile recorded (it drops
-    some late in a run, and the sum divided by ``calls`` then read low);
-    "not measured" where it recorded none."""
+    some late in a run, and the sum divided by ``calls`` then read low).  A
+    kernel of which a session recorded no launch is profiled again, over
+    twice the calls, up to three sessions; "not measured" only where none
+    recorded it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # CPU and CUDA both: late in a run, a CUDA-only session recorded no
-    # kernel (every row 0.0), where sessions with both still did
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = device_time_rows(prof)
-    out = {}
-    for name in kernels:
-        hits = [r for r in rows if re.search(rf"\b{name}\b", r["name"])]
-        launched = sum(r["calls"] for r in hits)
-        out[name] = (sum(r["device_ms"] for r in hits) / launched if launched
-                     else "not measured")
+    out = {name: "not measured" for name in kernels}
+    for attempt in range(3):
+        missing = [name for name in kernels if out[name] == "not measured"]
+        if not missing:
+            break
+        # CPU and CUDA both: late in a run, a CUDA-only session recorded no
+        # kernel (every row 0.0), where sessions with both still did
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls << attempt):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_time_rows(prof)
+        for name in missing:
+            hits = [r for r in rows if re.search(rf"\b{name}\b", r["name"])]
+            launched = sum(r["calls"] for r in hits)
+            if launched:
+                out[name] = sum(r["device_ms"] for r in hits) / launched
     return out
 
 
@@ -1825,14 +1833,15 @@ def ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, with_h0: bool):
 
 
 def phase_kernel_k4_bwd(torch, smi: str) -> dict:
-    """K4's backward (``ssd_scan_bwd.cu``, five CUDA kernels a call) against
+    """K4's backward (``ssd_scan_bwd.cu``, three CUDA kernels a call) against
     ``ssd_bwd_ref`` (f32, its plain version) and float64 autograd of
     ``ssd_ref`` on the forward's own span states, twice (the same bits),
     with CUDA-event times beside the bound, the plain version's, autograd of
     ``ssd_chunked`` on a kept graph (the CPU path's gradient, run on the
     card), and the forward's without and with its span states kept; each
     row's worst error as a share of the tolerance and each CUDA kernel's
-    device ms."""
+    device ms, their sum beside the call's CUDA-event ms; a kernel whose
+    device ms is not measured fails the row."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_ref
     from repro_torch.models.ssm import ssd_chunked
@@ -1901,6 +1910,11 @@ def phase_kernel_k4_bwd(torch, smi: str) -> dict:
                    [f"ssd_bwd_{ph}_kernel" for ph in ssd_ops.BWD_PHASES], calls=5),
                "card": smi}
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        by_kernel = list(row["device_ms_by_kernel"].values())
+        row["device_ms_sum"] = (sum(by_kernel) if "not measured" not in by_kernel
+                                else "not measured")
+        if row["device_ms_sum"] == "not measured":
+            row["ok"] = ok = False
         emit(row)
         results[((b, s, h, p, n), with_h0, scale)] = row
         if not ok:
@@ -2927,10 +2941,12 @@ def main() -> int:
     return 0
 
 
-def k3_bwd_rows(root: Path) -> int:
-    """``kernel-K3-bwd``'s bf16 rows up to Dh 128 (those PR 23's backward
-    takes) run by the ``chip_smoke.py`` and the package of the checkout at
-    ``root``: one side of the parent-against-change comparison."""
+def k4_bwd_rows(root: Path, out: Path) -> int:
+    """``kernel-K4-bwd``'s rows run by the ``chip_smoke.py`` and the package of
+    the checkout at ``root``, then K4's forward outputs (y and the final
+    state, without and with a gradient asked for) on seeded inputs at the
+    serving shape, a ragged S with h0, and N 256, saved to ``out``: one side
+    of the parent-against-change comparison."""
     import importlib.util
 
     import torch
@@ -2942,31 +2958,58 @@ def k3_bwd_rows(root: Path) -> int:
     spec = importlib.util.spec_from_file_location("chip_smoke_at_root", root / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    smoke.FA_BWD_SHAPES = [sh for sh in smoke.FA_BWD_SHAPES
-                           if sh[-1] == "bfloat16" and sh[3] <= 128]
-    smoke.phase_kernel_k3_bwd(torch, smoke.nvidia_smi_line())
+    smoke.phase_kernel_k4_bwd(torch, smoke.nvidia_smi_line())
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    saved = {}
+    for i, ((b, s, h, p, n), with_h0) in enumerate([(SSD_SERVING, False),
+                                                    ((2, 700, 24, 64, 128), True),
+                                                    ((1, 130, 2, 16, 256), True)]):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=DEVICE)
+
+        x, dt = randn(b, s, h, p), torch.nn.functional.softplus(randn(b, s, h))
+        A, Bm, Cm = -torch.exp(0.5 * randn(h)), randn(b, s, n), randn(b, s, n)
+        h0 = randn(b, h, p, n) if with_h0 else None
+        chunk = SSD_CHUNK if s % min(SSD_CHUNK, s) == 0 else s
+        with torch.no_grad():
+            saved[f"y{i}"], saved[f"h{i}"] = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+        y, hT = ssd_ops.ssd_scan(x.clone().requires_grad_(True), dt, A, Bm, Cm, chunk=chunk,
+                                 h0=h0)
+        saved[f"y{i}_grad"], saved[f"h{i}_grad"] = y.detach(), hT.detach()
+    torch.save({k: v.cpu() for k, v in saved.items()}, out)
     return 0
 
 
 def compare_parent(parent: Path) -> int:
-    """K3's backward of the checkout at ``parent`` and of this one on one
+    """K4's backward of the checkout at ``parent`` and of this one on one
     card, in turns (parent, change, change, parent), one process each (both
-    packages are named ``repro_torch``)."""
-    for tree, root in (("parent", parent), ("change", ROOT), ("change", ROOT),
-                       ("parent", parent)):
-        emit({"phase": "k3-bwd-compare", "tree": tree, "root": str(root)})
-        rc = subprocess.run([sys.executable, __file__, "--k3-bwd-rows", str(root)],
-                            timeout=600).returncode
+    packages are named ``repro_torch``); then K4's forward outputs of the
+    first parent and change runs, bit for bit."""
+    import torch
+
+    outs = []
+    for k, (tree, root) in enumerate((("parent", parent), ("change", ROOT), ("change", ROOT),
+                                      ("parent", parent))):
+        emit({"phase": "k4-bwd-compare", "tree": tree, "root": str(root)})
+        outs.append(ROOT / "build" / f"k4_forward_{k}_{tree}.pt")
+        outs[-1].parent.mkdir(parents=True, exist_ok=True)
+        rc = subprocess.run([sys.executable, __file__, "--k4-bwd-rows", str(root),
+                             str(outs[-1])], timeout=600).returncode
         if rc:
             return rc
-    return 0
+    want, got = torch.load(outs[0]), torch.load(outs[1])
+    same = {name: torch.equal(want[name], got[name]) for name in want}
+    emit({"phase": "k4-forward-bits", "bit_identical": all(same.values()), "outputs": same})
+    return 0 if all(same.values()) else 1
 
 
 if __name__ == "__main__":
-    # no arguments: the whole run; `--compare-parent DIR`: K3's backward of
+    # no arguments: the whole run; `--compare-parent DIR`: K4's backward of
     # the checkout at DIR (e.g. a `git archive` of the parent) beside this one
     if len(sys.argv) == 3 and sys.argv[1] == "--compare-parent":
         sys.exit(compare_parent(Path(sys.argv[2]).resolve()))
-    if len(sys.argv) == 3 and sys.argv[1] == "--k3-bwd-rows":
-        sys.exit(k3_bwd_rows(Path(sys.argv[2]).resolve()))
+    if len(sys.argv) == 4 and sys.argv[1] == "--k4-bwd-rows":
+        sys.exit(k4_bwd_rows(Path(sys.argv[2]).resolve(), Path(sys.argv[3])))
     sys.exit(main())

@@ -19,9 +19,13 @@
 //
 // Arithmetic.  The reference's float32 operations in the reference's order:
 // every product and sum rounded on its own (__fmul_rn/__fadd_rn, so nvcc
-// contracts nothing into an FMA), expf (not __expf), fmaxf.  Each seed's
-// chain runs in order in one thread: no atomics, nothing reordered across
-// steps, so the result is the plain PyTorch version's on the same card.
+// contracts nothing into an FMA), expf (not __expf), and a max that is
+// NaN where either operand is NaN and fmaxf otherwise, as torch.maximum
+// and jnp.maximum are (fmaxf alone drops a NaN operand, so a NaN in
+// appends, floors or dt would give finite finishes where the plain loops
+// give NaN).  Each seed's chain runs in order in one thread: no atomics,
+// nothing reordered across steps, so the result is the plain PyTorch
+// version's on the same card, NaNs included.
 //
 // Bound.  The work is a sequential chain per seed, a few operations a step,
 // so the byte bound (z or dt read once, the finishes written once: 8 bytes a
@@ -41,7 +45,8 @@
 // fall in one 128-byte line; any n_parts + n_conts fits.  Loads of z and dt
 // do not depend on the chain, so the unrolled loop issues them ahead of it.
 // An index outside [0, n_parts) or [0, n_conts) makes that step's finish
-// NaN and leaves the state as it was.
+// NaN and leaves the state as it was; a NaN input propagates through the
+// state as in the plain loops.
 
 #include <cuda_runtime.h>
 
@@ -52,6 +57,12 @@
 namespace {
 
 constexpr int THREADS = 32;
+
+// max(x, y) as torch.maximum takes it: the NaN operand where either is NaN,
+// else fmaxf(x, y).
+__device__ __forceinline__ float nan_max(float x, float y) {
+  return x != x ? x : y != y ? y : fmaxf(x, y);
+}
 
 __global__ void __launch_bounds__(THREADS)
 lockstep_chain_kernel(const float* __restrict__ appends, const float* __restrict__ means,
@@ -65,7 +76,7 @@ lockstep_chain_kernel(const float* __restrict__ appends, const float* __restrict
 #pragma unroll 8
   for (int i = 0; i < n; ++i) {
     const float dt = __fmul_rn(means[i], expf(__fadd_rn(a, __fmul_rn(b, zr[i]))));
-    finish = __fadd_rn(fmaxf(appends[i], finish), dt);
+    finish = __fadd_rn(nan_max(appends[i], finish), dt);
     o[i] = finish;
   }
 }
@@ -93,7 +104,8 @@ grid_lockstep_kernel(const float* __restrict__ floors, const int* __restrict__ p
       o[k] = NAN;
       continue;
     }
-    const float start = fmaxf(floors[k], fmaxf(part_last[p * stride], cont_last[c * stride]));
+    const float start =
+        nan_max(floors[k], nan_max(part_last[p * stride], cont_last[c * stride]));
     const float fin = __fadd_rn(start, d);
     part_last[p * stride] = fin;
     cont_last[c * stride] = fin;

@@ -22,7 +22,7 @@ Training: where grad mode is on and an input requires grad, a CUDA call
 goes through ``_SSDScan``, a ``torch.autograd.Function``.  Its forward
 launches the same three kernels and keeps their span-states scratch (the
 state entering each span of SPAN chunks, which the pass kernel writes there
-anyway), counted in ``STATES_KEPT``; its backward launches the five kernels
+anyway), counted in ``STATES_KEPT``; its backward launches the three kernels
 of ``csrc/ssd_scan_bwd.cu`` (``ssd_scan_bwd``), counted once a call in
 ``LAUNCHES["ssd_scan_bwd"]``, and takes ``None`` for either cotangent.
 Otherwise (serving, or ``torch.no_grad``) the scratch is dropped and
@@ -45,7 +45,7 @@ LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 STATES_KEPT = {"ssd_scan": 0}   # forward launches whose span states were kept (training)
 MAX_STATE = 256                 # the kernels' largest N (shared memory)
 PHASES = ("state", "pass", "out")     # the CUDA kernels of one call, in order
-BWD_PHASES = ("adj", "pass", "hin", "chunk", "sum")   # those of one backward call
+BWD_PHASES = ("carry", "chunk", "sum")   # those of one backward call
 Q = 64                          # the kernels' chunk length
 SPAN = 4                        # the kernels' chunks per span
 
@@ -73,6 +73,10 @@ def _bwd_kernels() -> ctypes.CDLL:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.ssd_backward.argtypes = [ptr] * 20 + [i] * 6 + [ptr]
         lib.ssd_backward.restype = ctypes.c_int
+        lib.ssd_bwd_group.argtypes = [i] * 5
+        lib.ssd_bwd_group.restype = ctypes.c_int
+        lib.ssd_bwd_state_ld.argtypes = [i]
+        lib.ssd_bwd_state_ld.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
 
@@ -181,20 +185,25 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, states, dh=None):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
+    lib = _bwd_kernels()
+    group = lib.ssd_bwd_group(B, S, H, N, x.device.index)
+    if group <= 0:
+        raise RuntimeError(f"ssd_scan backward: no head group for {(B, S, H, N)}")
     f32 = dict(dtype=torch.float32, device=x.device)
-    adj = torch.empty((B * H, n_chunks, P, N), **f32)
-    hin = torch.empty((B * H, n_chunks, P, N), **f32)
-    asum = torch.empty((B * H, n_chunks), **f32)
+    ld = lib.ssd_bwd_state_ld(N)        # the kernels' row stride of R and h_in
+    R = torch.empty((B * H, n_chunks, P, ld), **f32)
+    hin = torch.empty((B * H, n_chunks, P, ld), **f32)
+    cbt = torch.empty((B, n_chunks, Q, Q), **f32)
     dApart = torch.empty((B * H, n_chunks), **f32)
-    dBh = torch.empty((B, S, H, N), **f32)
-    dCh = torch.empty((B, S, H, N), **f32)
+    dBp = torch.empty((B, S, -(-H // group), N), **f32)
+    dCp = torch.empty((B, S, -(-H // group), N), **f32)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dA, dB, dC = torch.empty_like(A), torch.empty_like(Bm), torch.empty_like(Cm)
     dh0 = torch.empty((B, H, P, N), **f32)
-    err = _bwd_kernels().ssd_backward(
+    err = lib.ssd_backward(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         dy.data_ptr(), None if dh is None else dh.data_ptr(), states.data_ptr(),
-        adj.data_ptr(), asum.data_ptr(), hin.data_ptr(), dBh.data_ptr(), dCh.data_ptr(),
+        R.data_ptr(), hin.data_ptr(), cbt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
         dApart.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
         dC.data_ptr(), dh0.data_ptr(), B, S, H, P, N, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)

@@ -11,7 +11,12 @@ training path, for which the reference has no kernel (XLA differentiates
 its ``ssd_chunked``): the state entering each span of ``SPAN`` chunks of
 ``Q`` positions, as K4's forward leaves it in its scratch and keeps it for
 the backward, and the gradient of ``ssd_scan`` by explicit chunked
-formulas, in the phases of the backward kernels (``csrc/ssd_scan_bwd.cu``).
+formulas, those the backward kernels (``csrc/ssd_scan_bwd.cu``) compute.
+The kernels group them otherwise: they walk the adjoint across the chunks
+in one pass (the recursion of phases 1-2 below, each chunk's local adjoint
+added as it is reached), and they sum dB and dC over groups of heads, with
+LD B and LDᵀ C taken once a group on the group's summed LD; the same sums
+in another order, so the two agree to float32 rounding.
 """
 
 from __future__ import annotations

@@ -664,9 +664,15 @@ def _ssd_bwd_close(got, want, tol):
         assert bool(((g - w).abs() <= limit).all()), (name, float((g - w).abs().max()))
 
 
-@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0", SSD_SHAPES)
+# SSD_SHAPES with A as drawn, and Mamba2-130M's training microbatch with
+# heads decaying fast (A x 4: running sums of dt·A reach -1,000 in a chunk)
+SSD_BWD_CASES = [shape + (1.0,) for shape in SSD_SHAPES] + [(4, 1024, 24, 64, 128, 256, False,
+                                                             4.0)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_h0,scale", SSD_BWD_CASES)
 def test_ssd_scan_backward_matches_plain_and_repeats_bit_for_bit(device, b, s, h, p, n,
-                                                                  chunk, with_h0):
+                                                                  chunk, with_h0, scale):
     """Where the forward takes h0, the backward is given the final state's
     cotangent too; one ``ssd_scan_bwd`` launch a call."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -674,6 +680,7 @@ def test_ssd_scan_backward_matches_plain_and_repeats_bit_for_bit(device, b, s, h
 
     x, dt, A, Bm, Cm, *h0 = _ssd_inputs(b, s, h, p, n, device, seed=9, with_h0=with_h0)
     h0 = h0[0] if h0 else None
+    A = scale * A
     gen = torch.Generator(device=device).manual_seed(10)
     dy = torch.randn((b, s, h, p), generator=gen, device=device)
     dh = torch.randn((b, h, p, n), generator=gen, device=device) if with_h0 else None
@@ -693,6 +700,46 @@ def test_ssd_scan_backward_matches_plain_and_repeats_bit_for_bit(device, b, s, h
     y64, h64 = ssd_ref(*ins[:5], h0=ins[5] if h0 is not None else None)
     loss = (y64 * dy.double()).sum() + ((h64 * dh.double()).sum() if dh is not None else 0)
     _ssd_bwd_close(got, torch.autograd.grad(loss, ins), SSD_TOL)
+
+
+def test_ssd_scan_backward_takes_operands_off_16_byte_alignment(device):
+    """x, B, C, dy, dh and the span states one element into their storage:
+    the backward kernels stage them with plain loads instead of cp.async
+    and hold the same tolerances."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
+
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(2, 600, 3, 64, 128, device, seed=13, with_h0=True)
+    gen = torch.Generator(device=device).manual_seed(14)
+    dy = torch.randn((2, 600, 3, 64), generator=gen, device=device)
+    dh = torch.randn((2, 3, 64, 128), generator=gen, device=device)
+    _, _, states = ssd_ops._forward(x, dt, A, Bm, Cm, h0, keep_states=True)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    off = [shifted(t) for t in (x, Bm, Cm, dy, dh, states)]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in off)
+    xs, Bs, Cs, dys, dhs, sts = off
+    got = ssd_ops.ssd_scan_bwd(xs, dt, A, Bs, Cs, dys, sts, dhs)
+    again = ssd_ops.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, states, dh)
+    torch.cuda.synchronize()
+    _ssd_bwd_close(got, ssd_bwd_ref(x, dt, A, Bm, Cm, dy, states, dh), SSD_BWD_TOL)
+    _ssd_bwd_close(again, ssd_bwd_ref(x, dt, A, Bm, Cm, dy, states, dh), SSD_BWD_TOL)
+
+
+def test_ssd_scan_backward_source_has_no_atomics(device):
+    """dB, dC and dA are summed in a fixed order, so the backward's source
+    holds no atomic operation of any kind (two calls give the same bits)."""
+    from pathlib import Path
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    csrc = Path(ssd_ops.__file__).parent / "csrc"
+    for name in ("ssd_scan_bwd.cu", "ssd_common.cuh"):
+        assert "atomic" not in (csrc / name).read_text(), name
 
 
 def test_ssd_scan_gradients_flow_through_the_function(device):
@@ -867,6 +914,37 @@ def test_grid_lockstep_kernel_is_bit_equal_to_plain(device, s, n, n_parts, n_con
     assert ls_ops.LAUNCHES["grid_lockstep_scan"] == before + 1
     # max and a correctly rounded add: the same float32 values in any order
     assert torch.equal(got, grid_lockstep_scan_ref(floors, parts, conts, dt, n_parts, n_conts))
+
+
+def test_lockstep_kernels_propagate_nan_as_their_plain_loops(device):
+    """A NaN in appends, floors or dt: the kernels' max propagates it as
+    torch.maximum does in the plain loops (fmaxf would drop it), so the NaN
+    positions are the plain versions' and every other finish agrees."""
+    from repro_torch.kernels.lockstep_scan import ops as ls_ops
+    from repro_torch.kernels.lockstep_scan.ref import grid_lockstep_scan_ref, lockstep_scan_ref
+
+    rng = np.random.default_rng(7)
+    n = 300
+    appends = torch.from_numpy(np.cumsum(rng.exponential(0.3, n)).astype(np.float32)).to(device)
+    means = torch.from_numpy(rng.uniform(0.1, 0.5, n).astype(np.float32)).to(device)
+    z = torch.from_numpy(rng.standard_normal((8, n)).astype(np.float32)).to(device)
+    appends[120] = float("nan")
+    got = ls_ops.lockstep_scan(appends, means, z, -0.0198, 0.1990)
+    want = lockstep_scan_ref(appends, means, z, -0.0198, 0.1990)
+    assert torch.isnan(want[:, 120:]).all() and not torch.isnan(want[:, :120]).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got[:, :120], want[:, :120], rtol=LOCKSTEP_TOL, atol=0)
+    for where in ("floors", "dt"):
+        floors, parts, conts, dt = _grid_inputs(8, 400, 6, 9, device, seed=8)
+        if where == "floors":
+            floors[150] = float("nan")
+        else:
+            dt[3, 150] = float("nan")
+        got = ls_ops.grid_lockstep_scan(floors, parts, conts, dt, 6, 9)
+        want = grid_lockstep_scan_ref(floors, parts, conts, dt, 6, 9)
+        assert torch.isnan(want).any() and not torch.isnan(want).all(), where
+        assert torch.equal(torch.isnan(got), torch.isnan(want)), where
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()), where
 
 
 def test_grid_lockstep_kernel_marks_an_index_out_of_range(device):

@@ -323,6 +323,119 @@ def test_ssd_bwd_ref_is_within_tolerance_of_float64(b, s, h, p, n, chunk, with_h
     _bwd_close(_plain_bwd(*inputs), want, rtol=TOL, share=TOL)
 
 
+def _bwd_kernel_arithmetic(x, dt, A, Bm, Cm, dy, states, dh, split, group):
+    """K4's backward kernels on the CPU, every product through ``_tf32_mm``
+    with the kernels' operand weighting (dt, ec, w applied to an operand
+    before its split; L's mask after DX, as L ⊙ DX and M ⊙ DX): the carry
+    kernel's adjoint walked back from dh, R_{c-1} = D R_c + (ec ⊙ dy)ᵀ C, its
+    state walks through each span, (w dt ⊙ x)ᵀ B, and C Bᵀ once a chunk;
+    then the chunk kernel per head, DX = dy (dt x)ᵀ, g B = (w ⊙ B) Rᵀ + Mᵀ dy,
+    (w dt ⊙ x) R and (ec ⊙ dy) h_in (and their row dots v and u), and per
+    group of ``group`` heads dC += LDsum B and dB += LDsumᵀ C.  da is the
+    inner product itself; decays are segment sums.  (dx, ddt, dA, dB, dC,
+    dh0), float32."""
+    b, s, h, p = x.shape
+    n, q, span = Bm.shape[-1], ops.Q, ops.SPAN
+    nc = -(-s // q)
+    pad = nc * q - s
+    xs = F.pad(x, (0, 0, 0, 0, 0, pad)).reshape(b, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    dys = F.pad(dy, (0, 0, 0, 0, 0, pad)).reshape(b, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    dts = F.pad(dt, (0, 0, 0, pad)).reshape(b, nc, q, h).permute(0, 3, 1, 2)
+    Bs = F.pad(Bm, (0, 0, 0, pad)).reshape(b, nc, q, n)
+    Cs = F.pad(Cm, (0, 0, 0, pad)).reshape(b, nc, q, n)
+    a = dts * A[None, :, None, None]                               # (b, h, nc, q)
+    lower = torch.ones(q, q, dtype=torch.bool).tril()
+    strict = lower & ~torch.eye(q, dtype=torch.bool)
+    seg = torch.cumsum(torch.where(strict, a[..., :, None], 0.0), dim=-2)   # [j][k]
+    L = torch.where(lower, torch.exp(seg), 0.0)
+    cum = torch.cumsum(a, dim=-1)
+    ec, w, D = torch.exp(cum), torch.exp(seg[..., -1, :]), torch.exp(cum[..., -1])
+    # carry: the adjoint walked back from dh, the states forward through each span, C B^T
+    g = torch.zeros(b, h, p, n) if dh is None else dh.clone()
+    R = [None] * nc
+    for c in reversed(range(nc)):
+        R[c] = g
+        local = _tf32_mm((dys[:, :, c] * ec[..., c, :, None]).transpose(-1, -2),
+                         Cs[:, None, c], split)
+        g = D[..., c, None, None] * g + local
+    dh0 = g
+    st = states.reshape(b, h, -1, p, n)
+    hin = []
+    for c in range(nc):
+        if c % span == 0:
+            hin.append(st[:, :, c // span])
+        else:
+            xw = xs[:, :, c - 1] * (w[..., c - 1, :] * dts[..., c - 1, :])[..., None]
+            hin.append(D[..., c - 1, None, None] * hin[-1]
+                       + _tf32_mm(xw.transpose(-1, -2), Bs[:, None, c - 1], split))
+    cbt = torch.where(lower, _tf32_mm(Cs, Bs.transpose(-1, -2), split), 0.0)   # [j][k] = C_j . B_k
+    # chunk: per head, then per group of heads
+    dx, ddt, dA = torch.zeros(b, h, nc, q, p), torch.zeros(b, h, nc, q), torch.zeros(h)
+    dB, dC = torch.zeros(b, nc, q, n), torch.zeros(b, nc, q, n)
+    for c in range(nc):
+        for g0 in range(0, h, group):
+            dCg, dBg, LDsum = torch.zeros(b, q, n), torch.zeros(b, q, n), torch.zeros(b, q, q)
+            for hh in range(g0, min(h, g0 + group)):
+                Lh, wh, eh, dth = L[:, hh, c], w[:, hh, c], ec[:, hh, c], dts[:, hh, c]
+                M = Lh * cbt[:, c]
+                DX = _tf32_mm(dys[:, hh, c], (xs[:, hh, c] * dth[..., None]).transpose(-1, -2),
+                              split)
+                LDsum = LDsum + Lh * DX
+                K = M * DX
+                before = F.pad(torch.cumsum(K, dim=-1)[..., :-1], (1, 0))
+                da1 = (before * lower).sum(-2)
+                Rc, Hc = R[c][:, hh], hin[c][:, hh]
+                gB = (_tf32_mm(Bs[:, c] * wh[..., None], Rc.transpose(-1, -2), split)
+                      + _tf32_mm(M.transpose(-1, -2), dys[:, hh, c], split))
+                dx[:, hh, c] = dth[..., None] * gB
+                t1 = (xs[:, hh, c] * gB).sum(-1)
+                XR = _tf32_mm(xs[:, hh, c] * (wh * dth)[..., None], Rc, split)
+                v = (XR * Bs[:, c]).sum(-1)
+                YH = _tf32_mm(dys[:, hh, c] * eh[..., None], Hc, split)
+                u = (YH * Cs[:, c]).sum(-1)
+                dBg, dCg = dBg + XR, dCg + YH
+                E = D[:, hh, c] * (Rc * Hc).sum((-1, -2))
+                da = (da1 + torch.flip(torch.cumsum(torch.flip(u, [-1]), -1), [-1])
+                      + F.pad(torch.cumsum(v, -1)[..., :-1], (1, 0)) + E[:, None])
+                ddt[:, hh, c] = t1 + A[hh] * da
+                dA[hh] += (dth * da).sum()
+            dC[:, c] += dCg + _tf32_mm(LDsum, Bs[:, c], split)
+            dB[:, c] += dBg + _tf32_mm(LDsum.transpose(-1, -2), Cs[:, c], split)
+
+    def unchunk(t):                  # (b, h, nc, q, ...) -> (b, s, h, ...)
+        return t.reshape(b, h, nc * q, *t.shape[4:])[:, :, :s].movedim(1, 2)
+
+    return (unchunk(dx), unchunk(ddt), dA, dB.reshape(b, nc * q, n)[:, :s],
+            dC.reshape(b, nc * q, n)[:, :s], dh0)
+
+
+def test_tf32_split_keeps_the_backward_within_its_tolerance():
+    """Why K4's backward splits every product operand hi/lo, as its forward
+    does: its arithmetic, emulated on the CPU (``_bwd_kernel_arithmetic``) at
+    Mamba2-130M's P and N on a shape that crosses spans with a ragged last
+    chunk and span, with h0, dh and fast-decaying heads (A x 4), meets TOL
+    (scaled by each gradient's largest entry, as the card's check does)
+    against float64 autograd of ``ssd_ref`` at every entry with the split
+    (worst 0.003 of the limit); one TF32 pass misses it for every gradient,
+    at more than a hundredth of dx's entries (worst ~4.6 times the limit)."""
+    x, dt, A, Bm, Cm, h0, dy, dh = (torch.from_numpy(a) for a in
+                                    _bwd_inputs(1, 300, 3, 64, 128, True, True, 4.0, seed=3))
+    states = span_states_ref(x, dt, A, Bm, Cm, h0)
+    ins = [t.double().requires_grad_(True) for t in (x, dt, A, Bm, Cm, h0)]
+    y64, h64 = ssd_ref(*ins[:5], h0=ins[5])
+    want = torch.autograd.grad((y64 * dy.double()).sum() + (h64 * dh.double()).sum(), ins)
+
+    def outside(split):
+        got = _bwd_kernel_arithmetic(x, dt, A, Bm, Cm, dy, states, dh, split, group=3)
+        return {name: int(((g.double() - w).abs() > TOL * w.abs().max() + TOL * w.abs()).sum())
+                for name, g, w in zip(GRADS, got, want)}
+
+    assert outside(split=True) == dict.fromkeys(GRADS, 0)
+    one_pass = outside(split=False)
+    assert all(one_pass.values()), one_pass
+    assert one_pass["dx"] > x.numel() // 100, one_pass
+
+
 def test_span_states_ref_is_the_state_entering_each_span():
     x, dt, A, Bm, Cm, h0 = _torch(_inputs(2, 600, 3, 8, 4, seed=6, with_h0=True))
     states = span_states_ref(x, dt, A, Bm, Cm, h0)
