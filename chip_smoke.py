@@ -63,8 +63,9 @@ Phases, each printing JSON lines on standard output:
   points on the card at 8 and 1,024 seeds (launches counted over this
   run), within ``LOCKSTEP_RTOL`` of the float64 replay; then both
   ``lockstep_scan`` kernels against their plain versions on the same
-  operands, with CUDA-event times beside the plain loops', the bound and a
-  sequential replay of the same seeds;
+  operands, with CUDA-event times beside the plain loops', the bound and
+  its share, the chain floor (the longest run of dependent steps x a
+  step's max and add) and a sequential replay of the same seeds;
 * ``kernel-K3`` — kernel K3 (``flash_attention``: bf16 on the tensor cores,
   f32 on the CUDA cores) held against its plain version ``mha_ref`` at the
   prefill shape of every arch the run drives through it (Dh 64, 128 and
@@ -165,11 +166,12 @@ then each phase's seconds, the ``{"kernels": [...]}`` summary, the
 when no card is present, when run outside a checkout of the repository, or
 when any phase fails.  Imports nothing of JAX or of the JAX package.
 
-``python3 chip_smoke.py --compare-parent DIR`` runs only ``kernel-K4-bwd``'s
-four rows of the checkout at DIR (e.g. a ``git archive`` of the parent
-commit) and of this one, in turns (parent, change, change, parent), each
-with its own ``chip_smoke.py`` and package, and holds K4's forward outputs
-of the two checkouts on the same seeded inputs bit for bit.
+``python3 chip_smoke.py --compare-parent DIR`` runs only ``whatif``'s four
+lockstep kernel rows (both scans at 8 and 1,024 seeds) of the checkout at
+DIR (e.g. a ``git archive`` of the parent commit) and of this one, in turns
+(parent, change, change, parent), each with its own ``chip_smoke.py`` and
+package, and holds every output of the two checkouts on the same operands
+bit for bit.
 """
 
 from __future__ import annotations
@@ -253,6 +255,10 @@ LOCKSTEP_TOL = 1e-5     # kernel against plain: the chain's expf against torch.e
 LOCKSTEP_SOURCE = "src/repro_torch/kernels/lockstep_scan/csrc/lockstep_scan.cu"
 LOCKSTEP_REPLACES = {"lockstep_scan": "src/repro/sim/batched.py:1559",
                      "grid_lockstep_scan": "src/repro/sim/batched.py:1698"}
+# the scans' carried chain: a step's FMNMX.NAN then its FADD (counted in the
+# walkers' SASS, `cuobjdump -sass` of the built library), each ~4 cycles of
+# dependent latency on Hopper's FP32 pipes
+LOCKSTEP_CARRIED, CYCLES_PER_DEPENDENT = 2, 4
 N_CLUSTERS = 16
 SIM_CENTERS = 3 * np.random.default_rng([SEED, DIM]).standard_normal((N_CLUSTERS, DIM))
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, f32 outside the tensor cores
@@ -1507,18 +1513,45 @@ def whatif_lockstep(exp, device: str) -> dict:
     return out
 
 
+def sm_clock_max_mhz() -> float:
+    """The card's top SM clock, as ``nvidia-smi`` reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def writer_depth(parts, conts, n_parts: int, n_conts: int) -> int:
+    """The grid scan's longest chain of steps that wait on one another: step
+    k waits on the last earlier steps in range that wrote its partition and
+    its container (an out-of-range step waits on none and writes none)."""
+    depth, last = [0] * len(parts), ({}, {})
+    for k, (p, c) in enumerate(zip(parts.tolist(), conts.tolist())):
+        if not (0 <= p < n_parts and 0 <= c < n_conts):
+            continue
+        depth[k] = 1 + max(depth[last[0][p]] if p in last[0] else 0,
+                           depth[last[1][c]] if c in last[1] else 0)
+        last[0][p] = last[1][c] = k
+    return max(depth, default=0)
+
+
 def lockstep_rows(torch, exp, smi: str) -> dict:
     """Each lockstep kernel against its plain version on the card, on the
     operands the entry points build for ``exp`` at each of LOCKSTEP_SEEDS:
     worst deviation (and its share of LOCKSTEP_TOL), CUDA-event ms beside
-    the plain version's and the bound, and an estimate of the seconds a
-    sequential replay of the same seeds takes (the first 8 replayed and
-    timed, their mean scaled to the seed count)."""
+    the plain version's, the bound and its share, the chain floor (an
+    estimate: the longest run of steps that wait on one another, every
+    step for the chain and the writer graph's depth for the grid, x
+    LOCKSTEP_CARRIED dependent instructions x CYCLES_PER_DEPENDENT at the
+    card's top SM clock), and an estimate of the seconds a sequential
+    replay of the same seeds takes (the first 8 replayed and timed, their
+    mean scaled to the seed count)."""
     from repro_torch.core.miniapp import AdaptationPlan, run_plan
     from repro_torch.kernels.lockstep_scan import ops, ref
     from repro_torch.sim import batched
 
     dev = torch.device(DEVICE)
+    clock_mhz = sm_clock_max_mhz()
     chain_exp = dataclasses.replace(exp, scaling_policy="static", static_partitions=1)
     replay_s = [_timed(run_plan, AdaptationPlan(experiment=dataclasses.replace(exp, seed=s)))[1]
                 for s in range(LOCKSTEP_SEEDS[0])]
@@ -1545,6 +1578,8 @@ def lockstep_rows(torch, exp, smi: str) -> dict:
             in_bytes = S * n * 4 + (12 if name == "grid_lockstep_scan" else 8) * n
             t_bytes = (in_bytes + S * n * 4) / HBM_BYTES_PER_S
             t_ops = S * n * (4 if name == "grid_lockstep_scan" else 6) / F32_OPS_PER_S
+            chain = (writer_depth(g["parts"], g["conts"], g["n_parts"], g["n_conts"])
+                     if name == "grid_lockstep_scan" else n)
             row = {"phase": "whatif-kernel", "kernel": name, "seeds": S, "steps": n,
                    "ok": share <= 1.0 and bool(torch.isfinite(got).all()),
                    "bit_equal": bool(torch.equal(got, want)),
@@ -1554,11 +1589,14 @@ def lockstep_rows(torch, exp, smi: str) -> dict:
                    "plain_ms": cuda_ms(torch, lambda: plain(*args), iters=3, warmup=1),
                    "bound_ms": max(t_bytes, t_ops) * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "library_ms": None,
+                   "library_ms": None, "chain_steps": chain, "sm_clock_max_mhz": clock_mhz,
+                   "chain_floor_ms": (chain * LOCKSTEP_CARRIED * CYCLES_PER_DEPENDENT
+                                      / (clock_mhz * 1e3)),
                    # the first 8 seeds' replays measured, scaled to S seeds
                    "sequential_replay_s_est": (sum(replay_s) / len(replay_s) * S
                                                if name == "grid_lockstep_scan" else None),
                    "card": smi}
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
             if name == "grid_lockstep_scan":
                 row["n_parts"], row["n_conts"] = g["n_parts"], g["n_conts"]
             emit(row)
@@ -2933,6 +2971,7 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "ms_8_seeds": whatif["rows"][(name, LOCKSTEP_SEEDS[0])]["ms"],
+            "share_of_bound": row["share_of_bound"], "chain_floor_ms": row["chain_floor_ms"],
             "shape": {"seeds": row["seeds"], "steps": row["steps"], "dtype": "float32"}})
     emit({"kernels": summary})
     print(device["nvidia_smi"], flush=True)
@@ -2941,11 +2980,11 @@ def main() -> int:
     return 0
 
 
-def k4_bwd_rows(root: Path, out: Path) -> int:
-    """``kernel-K4-bwd``'s rows run by the ``chip_smoke.py`` and the package of
-    the checkout at ``root``, then K4's forward outputs (y and the final
-    state, without and with a gradient asked for) on seeded inputs at the
-    serving shape, a ragged S with h0, and N 256, saved to ``out``: one side
+def lockstep_tree_rows(root: Path, out: Path) -> int:
+    """``whatif``'s four lockstep kernel rows (both kernels at each of
+    LOCKSTEP_SEEDS) run by the ``chip_smoke.py`` and the package of the
+    checkout at ``root``, on the operands of fig8's serverless step cell,
+    then both kernels' outputs on those operands saved to ``out``: one side
     of the parent-against-change comparison."""
     import importlib.util
 
@@ -2958,58 +2997,68 @@ def k4_bwd_rows(root: Path, out: Path) -> int:
     spec = importlib.util.spec_from_file_location("chip_smoke_at_root", root / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    smoke.phase_kernel_k4_bwd(torch, smoke.nvidia_smi_line())
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    runs = smoke.whatif_tournament("serverless")
+    exp = runs["tournament"].summaries[("step", "usl", 0)].experiment.experiment
+    smoke.lockstep_rows(torch, exp, smoke.nvidia_smi_line())
+    from repro_torch.kernels.lockstep_scan import ops
+    from repro_torch.sim import batched
 
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    chain_exp = dataclasses.replace(exp, scaling_policy="static", static_partitions=1)
     saved = {}
-    for i, ((b, s, h, p, n), with_h0) in enumerate([(SSD_SERVING, False),
-                                                    ((2, 700, 24, 64, 128), True),
-                                                    ((1, 130, 2, 16, 256), True)]):
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device=DEVICE)
-
-        x, dt = randn(b, s, h, p), torch.nn.functional.softplus(randn(b, s, h))
-        A, Bm, Cm = -torch.exp(0.5 * randn(h)), randn(b, s, n), randn(b, s, n)
-        h0 = randn(b, h, p, n) if with_h0 else None
-        chunk = SSD_CHUNK if s % min(SSD_CHUNK, s) == 0 else s
-        with torch.no_grad():
-            saved[f"y{i}"], saved[f"h{i}"] = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
-        y, hT = ssd_ops.ssd_scan(x.clone().requires_grad_(True), dt, A, Bm, Cm, chunk=chunk,
-                                 h0=h0)
-        saved[f"y{i}_grad"], saved[f"h{i}_grad"] = y.detach(), hT.detach()
-    torch.save({k: v.cpu() for k, v in saved.items()}, out)
+    for n_seeds in LOCKSTEP_SEEDS:
+        seeds = list(range(n_seeds))
+        g = batched.grid_lockstep_inputs(exp, seeds)
+        c = batched.lockstep_inputs(chain_exp, seeds)
+        saved[f"grid_{n_seeds}"] = ops.grid_lockstep_scan(
+            *(torch.from_numpy(g[k]).to(DEVICE) for k in ("floors", "parts", "conts", "dt")),
+            g["n_parts"], g["n_conts"]).cpu()
+        saved[f"chain_{n_seeds}"] = ops.lockstep_scan(
+            *(torch.from_numpy(np.ascontiguousarray(c[k], dtype=np.float32)).to(DEVICE)
+              for k in ("appends", "means", "z")), c["a"], c["b"]).cpu()
+    torch.save(saved, out)
     return 0
 
 
 def compare_parent(parent: Path) -> int:
-    """K4's backward of the checkout at ``parent`` and of this one on one
-    card, in turns (parent, change, change, parent), one process each (both
-    packages are named ``repro_torch``); then K4's forward outputs of the
-    first parent and change runs, bit for bit."""
+    """The lockstep kernels of the checkout at ``parent`` and of this one on
+    one card, in turns (parent, change, change, parent), one process each
+    (both packages are named ``repro_torch``): ``whatif``'s four kernel rows
+    each, each row's ms in the four turns, and every output of each turn
+    bit for bit against the first parent's."""
     import torch
 
-    outs = []
+    outs, ms = [], {}
     for k, (tree, root) in enumerate((("parent", parent), ("change", ROOT), ("change", ROOT),
                                       ("parent", parent))):
-        emit({"phase": "k4-bwd-compare", "tree": tree, "root": str(root)})
-        outs.append(ROOT / "build" / f"k4_forward_{k}_{tree}.pt")
+        emit({"phase": "lockstep-compare", "tree": tree, "root": str(root)})
+        outs.append(ROOT / "build" / f"lockstep_{k}_{tree}.pt")
         outs[-1].parent.mkdir(parents=True, exist_ok=True)
-        rc = subprocess.run([sys.executable, __file__, "--k4-bwd-rows", str(root),
-                             str(outs[-1])], timeout=600).returncode
-        if rc:
-            return rc
-    want, got = torch.load(outs[0]), torch.load(outs[1])
-    same = {name: torch.equal(want[name], got[name]) for name in want}
-    emit({"phase": "k4-forward-bits", "bit_identical": all(same.values()), "outputs": same})
+        proc = subprocess.run([sys.executable, __file__, "--lockstep-rows", str(root),
+                               str(outs[-1])], capture_output=True, text=True, timeout=600)
+        print(proc.stdout, end="", flush=True)
+        print(proc.stderr, end="", file=sys.stderr, flush=True)
+        if proc.returncode:
+            return proc.returncode
+        for line in proc.stdout.splitlines():
+            row = json.loads(line) if line.startswith("{") else {}
+            if row.get("phase") == "whatif-kernel":
+                ms.setdefault(f"{row['kernel']}_{row['seeds']}", []).append(row["ms"])
+    want = torch.load(outs[0])
+    same = {f"{name}_turn{k}": torch.equal(want[name], torch.load(out)[name])
+            for k, out in enumerate(outs[1:], 1) for name in want}
+    emit({"phase": "lockstep-compare-ms", "turns": ["parent", "change", "change", "parent"],
+          "ms": ms, "change_faster_in_every_row": all(
+              max(v[1], v[2]) < min(v[0], v[3]) for v in ms.values())})
+    emit({"phase": "lockstep-bits", "bit_identical": all(same.values()), "outputs": same})
     return 0 if all(same.values()) else 1
 
 
 if __name__ == "__main__":
-    # no arguments: the whole run; `--compare-parent DIR`: K4's backward of
-    # the checkout at DIR (e.g. a `git archive` of the parent) beside this one
+    # no arguments: the whole run; `--compare-parent DIR`: the lockstep
+    # kernels of the checkout at DIR (e.g. a `git archive` of the parent)
+    # beside this one
     if len(sys.argv) == 3 and sys.argv[1] == "--compare-parent":
         sys.exit(compare_parent(Path(sys.argv[2]).resolve()))
-    if len(sys.argv) == 4 and sys.argv[1] == "--k4-bwd-rows":
-        sys.exit(k4_bwd_rows(Path(sys.argv[2]).resolve(), Path(sys.argv[3])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--lockstep-rows":
+        sys.exit(lockstep_tree_rows(Path(sys.argv[2]).resolve(), Path(sys.argv[3])))
     sys.exit(main())

@@ -30,7 +30,7 @@ def _kernels() -> ctypes.CDLL:
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lockstep_chain.argtypes = [ptr, ptr, ptr, f, f, ptr, i, i, i, ptr]
         lib.lockstep_chain.restype = i
-        lib.grid_lockstep.argtypes = [ptr] * 6 + [i] * 5 + [ptr]
+        lib.grid_lockstep.argtypes = [ptr] * 5 + [i] * 5 + [ptr]
         lib.grid_lockstep.restype = i
         _lib = lib
     return _lib
@@ -97,12 +97,9 @@ def grid_lockstep_scan(floors: torch.Tensor, parts: torch.Tensor, conts: torch.T
     out = torch.empty_like(dt)
     if S == 0:
         return out
-    # each seed's part_last and cont_last, [slot][seed]; the kernel zeroes it
-    scratch = torch.empty((n_parts + n_conts, S), dtype=torch.float32, device=dev)
     err = _kernels().grid_lockstep(
         floors.data_ptr(), parts.data_ptr(), conts.data_ptr(), dt.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), S, n, n_parts, n_conts, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        S, n, n_parts, n_conts, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grid_lockstep_scan kernel launch failed: cudaError_t {err}")
     LAUNCHES["grid_lockstep_scan"] += 1

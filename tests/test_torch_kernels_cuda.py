@@ -875,16 +875,25 @@ GRID_CELL = dict(machine="serverless", scaling_policy="usl", usl_sigma=0.0, usl_
 LOCKSTEP_TOL = 1e-5      # the chain's expf on the card against torch.exp
 
 
-def _grid_inputs(s, n, n_parts, n_conts, device, seed=0):
+def _grid_inputs(s, n, n_parts, n_conts, device, seed=0, floors="rising"):
+    """Rising floors (arrivals) mostly decide a step's start; flat ones (all
+    0) leave it to the slots' earlier finishes, however far back."""
     rng = np.random.default_rng(seed)
-    floors = np.cumsum(rng.exponential(0.1, n)).astype(np.float32)
+    floors = np.cumsum(rng.exponential(0.1 if floors == "rising" else 0.0, n)).astype(np.float32)
     parts = rng.integers(0, n_parts, n).astype(np.int32)
     conts = rng.integers(0, n_conts, n).astype(np.int32)
     dt = rng.uniform(0.05, 0.6, (s, n)).astype(np.float32)
     return [torch.from_numpy(a).to(device) for a in (floors, parts, conts, dt)]
 
 
-@pytest.mark.parametrize("s,n", [(8, 1251), (1024, 1251), (33, 7), (1, 1)])
+LOCK_T = 96              # lockstep_scan.cu's steps a tile
+# across the kernels' tile boundaries (one step, one short of a tile, a
+# tile, one over, the whatif cell's 1,041) and block boundaries (32 seeds)
+LOCK_SHAPES = [(s, n) for s in (1, 8, 33, 1024)
+               for n in (1, LOCK_T - 1, LOCK_T, LOCK_T + 1, 1041)]
+
+
+@pytest.mark.parametrize("s,n", [(8, 1251), (1024, 1251), (33, 7)] + LOCK_SHAPES)
 def test_lockstep_chain_kernel_matches_plain(device, s, n):
     from repro_torch.kernels.lockstep_scan import ops as ls_ops
     from repro_torch.kernels.lockstep_scan.ref import lockstep_scan_ref
@@ -901,13 +910,15 @@ def test_lockstep_chain_kernel_matches_plain(device, s, n):
     torch.testing.assert_close(got, want, rtol=LOCKSTEP_TOL, atol=0)
 
 
-@pytest.mark.parametrize("s,n,n_parts,n_conts", [(8, 1251, 11, 12), (1024, 1251, 16, 40),
-                                                 (40, 300, 4, 2000), (3, 5, 1, 1)])
-def test_grid_lockstep_kernel_is_bit_equal_to_plain(device, s, n, n_parts, n_conts):
+@pytest.mark.parametrize("s,n,n_parts,n_conts,floors", [
+    (8, 1251, 11, 12, "rising"), (1024, 1251, 16, 40, "rising"), (40, 300, 4, 2000, "rising"),
+    (3, 5, 1, 1, "rising"), (40, 300, 4, 2000, "flat")] + [
+        (s, n, 9, 9, floors) for s, n in LOCK_SHAPES for floors in ("rising", "flat")])
+def test_grid_lockstep_kernel_is_bit_equal_to_plain(device, s, n, n_parts, n_conts, floors):
     from repro_torch.kernels.lockstep_scan import ops as ls_ops
     from repro_torch.kernels.lockstep_scan.ref import grid_lockstep_scan_ref
 
-    floors, parts, conts, dt = _grid_inputs(s, n, n_parts, n_conts, device)
+    floors, parts, conts, dt = _grid_inputs(s, n, n_parts, n_conts, device, floors=floors)
     before = ls_ops.LAUNCHES["grid_lockstep_scan"]
     got = ls_ops.grid_lockstep_scan(floors, parts, conts, dt, n_parts, n_conts)
     torch.cuda.synchronize()
@@ -945,6 +956,16 @@ def test_lockstep_kernels_propagate_nan_as_their_plain_loops(device):
         assert torch.isnan(want).any() and not torch.isnan(want).all(), where
         assert torch.equal(torch.isnan(got), torch.isnan(want)), where
         assert torch.equal(got.nan_to_num(), want.nan_to_num()), where
+
+
+def test_lockstep_source_has_no_atomics(device):
+    """Each seed's chain runs in one thread in order, so the kernels' source
+    holds no atomic operation of any kind (two calls give the same bits)."""
+    from pathlib import Path
+
+    from repro_torch.kernels.lockstep_scan import ops as ls_ops
+
+    assert "atomic" not in (Path(ls_ops.__file__).parent / "csrc" / "lockstep_scan.cu").read_text()
 
 
 def test_grid_lockstep_kernel_marks_an_index_out_of_range(device):
