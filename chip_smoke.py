@@ -67,15 +67,17 @@ Phases, each printing JSON lines on standard output:
   its share, the chain floor (the longest run of dependent steps x a
   step's max and add) and a sequential replay of the same seeds;
 * ``kernel-K3`` — kernel K3 (``flash_attention``: bf16 on the tensor cores,
-  f32 on the CUDA cores) held against its plain version ``mha_ref`` at the
+  f32 on them in 3xTF32) held against its plain version ``mha_ref`` at the
   prefill shape of every arch the run drives through it (Dh 64, 128 and
   RecurrentGemma-2B's 256 with its window), bf16 and f32, a ragged one,
   and where a window bites (Dh 256, window 2,048 at S 4,096; a window of
   100 on the ragged shape), with CUDA-event times beside the bound and
-  SDPA (given the window as a boolean mask);
+  SDPA (given the window as a boolean mask), the references computed with
+  TF32 off;
 * ``kernel-K3-bwd`` — K3's backward (``flash_attention_bwd.cu``: bf16 on
-  wgmma with TMA tiles, four CUDA kernels a call; f32 on the CUDA cores,
-  three) held against ``mha_bwd_ref`` on the forward's own output and lse
+  wgmma with TMA tiles, four CUDA kernels a call; f32 on 3xTF32 mma.sync,
+  three, or four where the G heads are spread over chunks) held against
+  ``mha_bwd_ref`` (TF32 off) on the forward's own output and lse
   at Qwen2-0.5B's training shape, at Dh 128 (BH 160, BKV 32), with a
   window of 100 at a ragged S, and at RecurrentGemma-2B's training shape
   (Dh 256, G 10), bf16 and f32, twice (the same bits), with CUDA-event
@@ -171,13 +173,17 @@ lockstep kernel rows (both scans at 8 and 1,024 seeds) of the checkout at
 DIR (e.g. a ``git archive`` of the parent commit) and of this one, in turns
 (parent, change, change, parent), each with its own ``chip_smoke.py`` and
 package, and holds every output of the two checkouts on the same operands
-bit for bit.
+bit for bit; then, in turns again, K3's f32 rows (``K3_COMPARE_FWD`` and
+``K3_COMPARE_BWD``) with each package: each row's ms and worst share of its
+tolerance in every turn, and the bf16 forward's and backward's outputs at
+the same shapes, which must keep their bits.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -304,15 +310,18 @@ FA_PREFILL_ARCHS = (DENSE_ARCH, LARGE_ARCH, HYBRID_ARCH, MOE_ARCH) + ARCH_CONFIG
 FA_RAGGED = [(6, 3, 1_000, 40, 0, "float32"), (6, 3, 1_000, 40, 0, "bfloat16")]
 FA_WINDOWED = [(40, 4, 4_096, 256, 2_048, "bfloat16"), (40, 4, 4_096, 256, 2_048, "float32"),
                (6, 3, 1_000, 40, 100, "bfloat16"), (6, 3, 1_000, 40, 100, "float32")]
-# f32: tests/test_kernels.py:64's 2e-5 (K3's f32 kernel runs on the CUDA
-# cores in f32).  bf16: K3 multiplies the bf16 inputs exactly on the tensor
-# cores with f32 sums, and splits P into two bf16 parts (hi and lo) for PV,
-# which keeps ~16 bits of each probability, so it and mha_ref both compute in
-# f32 up to summation order and round the output to bf16 once: they may
-# differ by one bf16 step (2**-7 of the value) where the f32 results straddle
-# a rounding boundary; atol covers their ~1e-5 f32 differences near 0.  A
-# single bf16 P (~2**-9 per probability) was not what this was set for.
-# Tighter than the CPU parity test's 3e-2 against JAX.
+# f32: tests/test_kernels.py:64's 2e-5 (K3's f32 kernel computes each
+# product in 3xTF32, a_hi b_hi + a_lo b_hi + a_hi b_lo with each operand
+# split into two TF32 parts, which keeps ~21 bits of each operand, and sums
+# in f32; one TF32 product would miss 2e-5 by ~60x).  bf16: K3 multiplies
+# the bf16 inputs exactly on the tensor cores with f32 sums, and splits P
+# into two bf16 parts (hi and lo) for PV, which keeps ~16 bits of each
+# probability, so it and mha_ref both compute in f32 up to summation order
+# and round the output to bf16 once: they may differ by one bf16 step
+# (2**-7 of the value) where the f32 results straddle a rounding boundary;
+# atol covers their ~1e-5 f32 differences near 0.  A single bf16 P (~2**-9
+# per probability) was not what this was set for.  Tighter than the CPU
+# parity test's 3e-2 against JAX.
 FA_TOLERANCE = {"float32": {"rtol": 2e-5, "atol": 2e-5},
                 "bfloat16": {"rtol": 8e-3, "atol": 1e-4}}
 BF16_OPS_PER_S = 989e12                           # H100 SXM dense bf16 tensor cores
@@ -370,17 +379,22 @@ FA_BWD_SHAPES = [sh + (dt,) for sh in (FA_BWD_TRAIN, (4 * 40, 4 * 8, 1_024, 128,
                                        (14, 2, 1_000, 64, 100), FA_BWD_TRAIN_RG)
                  for dt in ("bfloat16", "float32")]
 # each CUDA kernel of a backward call, by dtype: D, dK/dV, the G-chunks' sum
-# (bf16 only), dQ
+# (where the heads are spread over more than one chunk), dQ
 FA_BWD_KERNELS = {"bfloat16": ("fa_bwd_delta_kernel", "fa_bwd_dkdv_bf16_kernel",
                                "fa_bwd_sum_kernel", "fa_bwd_dq_bf16_kernel"),
                   "float32": ("fa_bwd_delta_kernel", "fa_bwd_dkdv_f32_kernel",
-                              "fa_bwd_dq_f32_kernel")}
+                              "fa_bwd_sum_kernel", "fa_bwd_dq_f32_kernel")}
 # (rtol, atol as a share of the largest entry), tests/test_torch_kernels_cuda.py's
 # FA_BWD_TOL: f32 the forward's 2e-5, atol scaled since dk and dv sum S·G
 # products in another order; bf16 one bf16 step (the kernel computes in f32
 # up to summation order, P and dS entering the products as hi/lo bf16
 # pairs, and both round once), atol for the f32 differences near 0
 FA_BWD_TOLERANCE = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-4)}
+# --compare-parent's K3 rows (BH, BKV, S, Dh, window): kernel-K3's four f32
+# shapes (Qwen2-0.5B's, Qwen2.5-14B's and RecurrentGemma-2B's prefill, the
+# window at S 4,096) and kernel-K3-bwd's four f32 shapes
+K3_COMPARE_FWD = [FA_SERVING + (0,), FA_SERVING_14B + (0,), FA_SERVING_RG, FA_WINDOWED[1][:5]]
+K3_COMPARE_BWD = [sh[:5] for sh in FA_BWD_SHAPES if sh[5] == "float32"]
 # training: full-width Qwen2-0.5B, 24 layers, bf16, SyntheticLM at 8 x 1,024
 # tokens a step in 2 microbatches, AdamW with f32 moments; 30 steps with a
 # checkpoint at step 20, then a restart from it that redoes steps 20-29
@@ -542,19 +556,25 @@ def visible_pairs(s: int, window: int = 0) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
+def product_ms(ops: float, bytes_per_el: int) -> float:
+    """ms of ``ops`` matrix-product operations at the rate of the input type
+    on the tensor cores: bf16 at its peak; f32 in 3xTF32, three TF32
+    products for each (the split that keeps f32 accuracy)."""
+    return (ops / BF16_OPS_PER_S if bytes_per_el == 2 else 3 * ops / TF32_OPS_PER_S) * 1e3
+
+
 def fa_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int, window: int = 0):
     """(least ms, what bounds it, ms of the same operations at the f32
     CUDA-core rate) of causal GQA attention: q, k, v read once and the
     output written once at the HBM rate, against the two products over the
     unmasked (query, key) pairs of each q row (``visible_pairs``; 2 Dh
-    operations each for QK^T and for PV, a multiply-add counted as 2) at the
-    peak of the input type (bf16 tensor cores; f32 CUDA cores, since 2e-5 is
-    beyond TF32)."""
-    t_bytes = (2 * bh + 2 * bkv) * s * dh * bytes_per_el / HBM_BYTES_PER_S
+    operations each for QK^T and for PV, a multiply-add counted as 2) on the
+    tensor cores (``product_ms``: bf16, or f32 in 3xTF32)."""
+    t_bytes = (2 * bh + 2 * bkv) * s * dh * bytes_per_el / HBM_BYTES_PER_S * 1e3
     ops = 4.0 * bh * visible_pairs(s, window) * dh
-    t_ops = ops / (BF16_OPS_PER_S if bytes_per_el == 2 else F32_OPS_PER_S)
+    t_ops = product_ms(ops, bytes_per_el)
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by, ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), by, ops / F32_OPS_PER_S * 1e3
 
 
 def bound(n: int, k: int, d: int, in_bytes_per_el: int, out_bytes: int,
@@ -1690,6 +1710,8 @@ def phase_kernel_k3(torch, smi: str) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import mha_ref
 
+    torch.backends.cuda.matmul.allow_tf32 = False     # mha_ref's products in full f32, stated
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2377,15 +2399,17 @@ def phase_serve_profile(torch, smi: str, params, arch: str, kernel: str,
 # -- training ----------------------------------------------------------------------
 
 def fa_bwd_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int, window: int = 0):
-    """(least ms, what bounds it) of K3's backward: q, k, v, the output, dO
-    and lse read once and dq, dk, dv written once at the HBM rate, against
-    five products over the visible (query, key) pairs of each q row (QK^T,
-    dO V^T, P^T dO, dS K, dS^T Q; 2 Dh operations each, 2.5x the forward's
-    two) at the peak of the input type."""
-    t_bytes = ((4 * bh + 4 * bkv) * s * dh * bytes_per_el + 4 * bh * s) / HBM_BYTES_PER_S
+    """(least ms, what bounds it, ms of the operations at the f32 CUDA-core
+    rate) of K3's backward: q, k, v, the output, dO and lse read once and
+    dq, dk, dv written once at the HBM rate, against five products over the
+    visible (query, key) pairs of each q row (QK^T, dO V^T, P^T dO, dS K,
+    dS^T Q; 2 Dh operations each, 2.5x the forward's two) on the tensor
+    cores (``product_ms``: bf16, or f32 in 3xTF32)."""
+    t_bytes = ((4 * bh + 4 * bkv) * s * dh * bytes_per_el + 4 * bh * s) / HBM_BYTES_PER_S * 1e3
     ops = 10.0 * bh * visible_pairs(s, window) * dh
-    t_ops = ops / (BF16_OPS_PER_S if bytes_per_el == 2 else F32_OPS_PER_S)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    t_ops = product_ms(ops, bytes_per_el)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            ops / F32_OPS_PER_S * 1e3)
 
 
 def phase_kernel_k3_bwd(torch, smi: str) -> dict:
@@ -2400,6 +2424,8 @@ def phase_kernel_k3_bwd(torch, smi: str) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import lse_ref, mha_bwd_ref
 
+    torch.backends.cuda.matmul.allow_tf32 = False     # mha_bwd_ref's products in full f32
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2434,7 +2460,7 @@ def phase_kernel_k3_bwd(torch, smi: str) -> dict:
         else:
             o4 = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
         do4 = do[None]
-        bound_ms, by = fa_bwd_bound(bh, bkv, s, dh, q.element_size(), window)
+        bound_ms, by, f32_core_ms = fa_bwd_bound(bh, bkv, s, dh, q.element_size(), window)
         row = {"phase": "kernel-K3-bwd", "bh": bh, "bkv": bkv, "s": s, "dh": dh,
                "window": window, "dtype": dtype_name, "ok": ok, "bit_identical": same,
                "tolerance": {"rtol": rtol, "atol_share_of_max": share},
@@ -2450,7 +2476,8 @@ def phase_kernel_k3_bwd(torch, smi: str) -> dict:
                    q, k, v, window=window)),
                "forward_lse_ms": cuda_ms(torch, lambda: fa_ops._forward(
                    q, k, v, window, with_lse=True)),
-               "bound_ms": bound_ms, "bound_by": by, "route": route,
+               "bound_ms": bound_ms, "bound_by": by, "f32_core_ms": f32_core_ms,
+               "route": route,
                "device_ms_by_kernel": device_ms_by_kernel(
                    torch, lambda: fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window),
                    FA_BWD_KERNELS[dtype_name], calls=5),
@@ -2887,14 +2914,18 @@ def main() -> int:
             "share_of_bound": row["share_of_bound"], "device_ms": row["device_ms"]})
     row, big = k3[FA_SERVING + (0, "bfloat16")], k3[FA_SERVING_14B + (0, "bfloat16")]
     rg, rg_window = k3[FA_SERVING_RG + ("bfloat16",)], k3[FA_WINDOWED[0]]
+    f32 = k3[FA_SERVING + (0, "float32")]
     summary.append({
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
         "replaces": FA_REPLACES, "launches": serving["flash_attention"]["launches"][
             "flash_attention"],
         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"], "f32_core_ms": row["f32_core_ms"],
+        "library_ms": row["library_ms"],
         "shape": dict(zip(("bh", "bkv", "s", "dh"), FA_SERVING), dtype="bfloat16"),
+        # the same shape in f32 (3xTF32; the parity phases' dtype)
+        **{f"{key}_f32": f32[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms", "f32_core_ms")},
         # Qwen2.5-14B's prefill, Dh 128
         "launches_serve_14b": serving["flash_attention_14b"]["launches"]["flash_attention"],
         "max_abs_err_dh128": big["max_abs_err"], "ms_dh128": big["ms"],
@@ -2918,6 +2949,7 @@ def main() -> int:
                              dtype="bfloat16")})
     row, big = k3_bwd[FA_BWD_TRAIN + ("bfloat16",)], k3_bwd[FA_BWD_SHAPES[2]]
     rg = k3_bwd[FA_BWD_TRAIN_RG + ("bfloat16",)]
+    f32 = k3_bwd[FA_BWD_TRAIN + ("float32",)]
     summary.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_BWD_SOURCE,
         "replaces": FA_BWD_REPLACES,
@@ -2929,6 +2961,9 @@ def main() -> int:
         "bit_identical": row["bit_identical"],
         "shape": dict(zip(("bh", "bkv", "s", "dh"), FA_BWD_TRAIN), dtype="bfloat16"),
         "device_ms_by_kernel": row["device_ms_by_kernel"],
+        **{f"{key}_f32": f32[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms", "f32_core_ms",
+                                              "worst_to_tolerance")},
         **{f"{key}_dh128": big[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
         "shape_dh128": dict(zip(("bh", "bkv", "s", "dh"), FA_BWD_SHAPES[2]),
@@ -3019,17 +3054,84 @@ def lockstep_tree_rows(root: Path, out: Path) -> int:
     return 0
 
 
-def compare_parent(parent: Path) -> int:
-    """The lockstep kernels of the checkout at ``parent`` and of this one on
-    one card, in turns (parent, change, change, parent), one process each
-    (both packages are named ``repro_torch``): ``whatif``'s four kernel rows
-    each, each row's ms in the four turns, and every output of each turn
-    bit for bit against the first parent's."""
+def k3_tree_rows(root: Path) -> int:
+    """K3's rows of the package of the checkout at ``root``, one side of the
+    parent-against-change comparison, printed as JSON: the f32 forward at
+    each K3_COMPARE_FWD shape and the f32 backward at each K3_COMPARE_BWD
+    shape, each with its CUDA-event ms and its worst share of its tolerance
+    against the plain version (TF32 off), and a sha256 of the bf16 forward's
+    outputs (and the backward's) at the same shape on the same inputs."""
     import torch
 
+    if not torch.cuda.is_available():
+        print("chip_smoke: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+
+    def sha(*tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def inputs(i: int, counts, s: int, dh: int):
+        gen = torch.Generator(device=dev).manual_seed(SEED + i)
+        return [torch.randn((n, s, dh), generator=gen, device=dev) for n in counts]
+
+    tol = FA_TOLERANCE["float32"]
+    for i, (bh, bkv, s, dh, window) in enumerate(K3_COMPARE_FWD):
+        q, k, v = inputs(i, (bh, bkv, bkv), s, dh)
+        got, want = fa_ops.flash_attention(q, k, v, window=window), mha_ref(q, k, v, window=window)
+        worst = float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
+        del got, want
+        ms = cuda_ms(torch, lambda: fa_ops.flash_attention(q, k, v, window=window))
+        qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+        emit({"phase": "k3-compare", "kernel": "forward", "row": f"{bh},{bkv},{s},{dh},{window}",
+              "ms": ms, "worst_to_tolerance": worst,
+              "bf16_sha256": sha(fa_ops.flash_attention(qb, kb, vb, window=window))})
+        del q, k, v, qb, kb, vb
+        torch.cuda.empty_cache()
+    rtol, share = FA_BWD_TOLERANCE["float32"]
+    for i, (bh, bkv, s, dh, window) in enumerate(K3_COMPARE_BWD):
+        q, k, v, do = inputs(i, (bh, bkv, bkv, bh), s, dh)
+        out, lse = fa_ops._forward(q, k, v, window, with_lse=True)
+        got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window)
+        want = mha_bwd_ref(q, k, v, out, do, lse, window=window)
+        worst = max(float(((g - w).abs() / (share * w.abs().max() + rtol * w.abs())).max())
+                    for g, w in zip(got, want))
+        del got, want
+        ms = cuda_ms(torch, lambda: fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window))
+        qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+        outb, lseb = fa_ops._forward(qb, kb, vb, window, with_lse=True)
+        emit({"phase": "k3-compare", "kernel": "backward", "row": f"{bh},{bkv},{s},{dh},{window}",
+              "ms": ms, "worst_to_tolerance": worst,
+              "bf16_sha256": sha(outb, lseb, *fa_ops.flash_attention_bwd(
+                  qb, kb, vb, outb, dob, lseb, window))})
+        del q, k, v, do, out, lse, qb, kb, vb, dob, outb, lseb
+        torch.cuda.empty_cache()
+    return 0
+
+
+def compare_parent(parent: Path) -> int:
+    """The lockstep kernels, then K3's rows, of the checkout at ``parent``
+    and of this one on one card, in turns (parent, change, change, parent),
+    one process each (both packages are named ``repro_torch``): for the
+    lockstep kernels ``whatif``'s four rows each, each row's ms in the four
+    turns, and every output of each turn bit for bit against the first
+    parent's; for K3 each ``k3_tree_rows`` row's ms and worst share of its
+    tolerance in the four turns, and its bf16 outputs' digest in each turn
+    against the first parent's."""
+    import torch
+
+    turns = (("parent", parent), ("change", ROOT), ("change", ROOT), ("parent", parent))
     outs, ms = [], {}
-    for k, (tree, root) in enumerate((("parent", parent), ("change", ROOT), ("change", ROOT),
-                                      ("parent", parent))):
+    for k, (tree, root) in enumerate(turns):
         emit({"phase": "lockstep-compare", "tree": tree, "root": str(root)})
         outs.append(ROOT / "build" / f"lockstep_{k}_{tree}.pt")
         outs[-1].parent.mkdir(parents=True, exist_ok=True)
@@ -3050,15 +3152,40 @@ def compare_parent(parent: Path) -> int:
           "ms": ms, "change_faster_in_every_row": all(
               max(v[1], v[2]) < min(v[0], v[3]) for v in ms.values())})
     emit({"phase": "lockstep-bits", "bit_identical": all(same.values()), "outputs": same})
-    return 0 if all(same.values()) else 1
+
+    k3 = {}                            # (kernel, row) -> the turns' rows
+    for tree, root in turns:
+        emit({"phase": "k3-compare", "tree": tree, "root": str(root)})
+        proc = subprocess.run([sys.executable, __file__, "--k3-rows", str(root)],
+                              capture_output=True, text=True, timeout=900)
+        print(proc.stdout, end="", flush=True)
+        print(proc.stderr, end="", file=sys.stderr, flush=True)
+        if proc.returncode:
+            return proc.returncode
+        for line in proc.stdout.splitlines():
+            row = json.loads(line) if line.startswith("{") else {}
+            if row.get("phase") == "k3-compare" and "ms" in row:
+                k3.setdefault((row["kernel"], row["row"]), []).append(row)
+    bits = {f"{kernel} {row}": all(r["bf16_sha256"] == rows[0]["bf16_sha256"] for r in rows)
+            for (kernel, row), rows in k3.items()}
+    emit({"phase": "k3-compare-ms", "turns": [t for t, _ in turns],
+          "ms": {f"{kernel} {row}": [r["ms"] for r in rows] for (kernel, row), rows in k3.items()},
+          "worst_to_tolerance": {f"{kernel} {row}": [r["worst_to_tolerance"] for r in rows]
+                                 for (kernel, row), rows in k3.items()},
+          "change_faster_in_every_row": all(
+              max(r[1]["ms"], r[2]["ms"]) < min(r[0]["ms"], r[3]["ms"]) for r in k3.values())})
+    emit({"phase": "k3-bf16-bits", "bit_identical": all(bits.values()), "outputs": bits})
+    return 0 if all(same.values()) and all(bits.values()) else 1
 
 
 if __name__ == "__main__":
     # no arguments: the whole run; `--compare-parent DIR`: the lockstep
-    # kernels of the checkout at DIR (e.g. a `git archive` of the parent)
-    # beside this one
+    # kernels and K3's rows of the checkout at DIR (e.g. a `git archive` of
+    # the parent) beside this one
     if len(sys.argv) == 3 and sys.argv[1] == "--compare-parent":
         sys.exit(compare_parent(Path(sys.argv[2]).resolve()))
     if len(sys.argv) == 4 and sys.argv[1] == "--lockstep-rows":
         sys.exit(lockstep_tree_rows(Path(sys.argv[2]).resolve(), Path(sys.argv[3])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--k3-rows":
+        sys.exit(k3_tree_rows(Path(sys.argv[2]).resolve()))
     sys.exit(main())

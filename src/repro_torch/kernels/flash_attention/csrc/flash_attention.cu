@@ -83,19 +83,39 @@
 //  peak: wgmma with TMA, warp specialisation and a persistent grid are the
 //  later levers.
 //
-// f32: flash_attention_kernel, on the CUDA cores in f32.  Its check
-// against mha_ref (2e-5) is beyond TF32, so it stays off the tensor
-// cores: one block of 256 threads per (q row, 64-query tile), k and v
-// tiles staged in shared memory as f32, a 16 x 16 thread grid in which
-// thread (ty, tx) owns query rows ty + 16 i (i < 4), the scores of keys
-// tx + 16 j (j < 4) and head-dim columns tx + 16 j (j < DN) of the
-// accumulator; m, l and acc in registers, the row max and sum combined with
-// shuffles, the probabilities passed through a shared tile to the PV
-// product.  Shared memory: (64 + 2 * 64) * (Dh + 1) + 64 * 65 floats,
-// 66,560 B at Dh = 64, 115,712 B at Dh = 128 and 214,016 B at Dh = 256
-// (under the 232,448 B opt-in limit); the +1 row pad keeps the column-wise
-// reads free of bank conflicts.  Above Dh = 128 each thread holds 16
-// columns of the accumulator (DN 16), 64 f32; 128 registers, no spill.
+// f32 (the parity dtype): flash_attention_kernel<DP>, on the tensor cores in
+// 3xTF32.  One TF32 product misses the 2e-5 check against mha_ref by ~60x;
+// three keep f32 accuracy: each operand v is split into hi = v cut to TF32
+// and lo = v - hi (cut again by the tensor core), and a b = a_hi b_hi +
+// a_lo b_hi + a_hi b_lo on mma.sync m16n8k8 (wgmma takes TF32 only K-major,
+// which V in PV is not).  Bound: the same two products, three times over at
+// the 495 TFLOP/s TF32 peak (chip_smoke.py's fa_bound): 0.0456 ms at
+// Qwen2-0.5B's prefill shape, against 0.1123 at the f32 CUDA-core rate.
+//  * The bf16 kernel's layout: one block of 4 warps per (q row, 64-query
+//    tile), 16 query rows a warp, the heaviest tiles first; a warp skips a
+//    kv tile none of its rows sees (the causal diagonal, the window).
+//  * Staging: q (64 rows) once, k and v double-buffered with 16-byte
+//    cp.async while the previous tile computes (plain loads where Dh % 4 !=
+//    0 or a pointer is not 16-byte aligned), Dh zero-filled up to DP (32,
+//    64, 128 or 256), keys past S zero-filled.  Row stride DP + 4 floats
+//    (4 mod 32): ldmatrix (4 words a lane of 8 x 4 f32 tiles) reads q and k
+//    free of bank conflicts, and so do the scalar reads of V at rows 2 q and
+//    2 q + 1, column g (banks 8 q + g, 8 q + 4 + g): no swizzle.
+//  * S = (q scale) K^T: q's A fragments and k's B fragments by ldmatrix,
+//    split in registers; 64 columns of Dh a chain of mma.sync from 0, the
+//    chains added in f32 (the tensor core truncates what it accumulates).
+//  * Online softmax as in the bf16 kernel, with expf (f32 accuracy); P
+//    feeds PV straight from the score registers: the accumulator holds
+//    columns (2 q, 2 q + 1) of each 8-key step, the A fragment wants (q,
+//    q + 4), so the step's keys are taken in the order 0, 2, 4, 6, 1, 3, 5,
+//    7 and V's rows read in the same order: no shuffle, no shared tile.
+//    O = O alpha + P V, each 8-column tile's P V one chain from 0, added in
+//    f32 by one FMA that also applies alpha.
+//  Keys a tile T: 64 up to Dh 64, 32 above.  Shared memory (64 + 4 T) (DP +
+//  4) floats: 87,040 B at Dh 64 and 101,376 B at Dh 128 (2 blocks, 8 warps
+//  an SM), 199,680 B at Dh 256 (1 block).  Registers (-Xptxas -v): 127 /
+//  163 / 157 / 233 a thread at DP 32 / 64 / 128 / 256, no spill; the
+//  accumulator alone is DP / 2 f32, so above Dh 128 the keys a tile halve.
 //
 // Training (the lse argument, NULL when serving): each row's log-sum-exp of
 // its scaled scores, m + log l, is written to an f32 (BH, S) array from the
@@ -117,122 +137,143 @@
 
 namespace {
 
-template <int DN>
-__global__ void __launch_bounds__(THREADS)
+// -- f32: 3xTF32 on the tensor cores -------------------------------------------
+
+// Keys a kv tile of the f32 kernel at padded head dim DP.
+__host__ __device__ constexpr int f32_tk(int dp) { return dp <= 64 ? 64 : 32; }
+
+template <int DP>   // Dh zero-filled up to DP (32, 64, 128 or 256)
+__global__ void __launch_bounds__(TC_THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        float* __restrict__ lse, int S, int dh, int group, float scale,
-                       int window) {
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* qs = smem;                   // [BQ][ld], q * scale
-  float* ks = qs + BQ * ld;           // [TK][ld]
-  float* vs = ks + TK * ld;           // [TK][ld]
-  float* ps = vs + TK * ld;           // [BQ][PLD], probabilities of one tile
-  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
-  const int bh = blockIdx.y;
+                       int window, bool vec) {
+  constexpr int T = f32_tk(DP), LD = f32_ld(DP), NK = T / 8, ND = DP / 8, TILE = T * LD;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qs = smem_f32;                          // [BQ][LD]; the output tile last
+  float* kvs = qs + BQ * LD;                     // two stages of k [T][LD], v [T][LD]
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;     // heaviest tiles first
   const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;        // accumulator row and column pair
+  const int r0 = q0 + warp * 16;                 // this warp's first row
   const float* kb = k + (size_t)(bh / group) * S * dh;
   const float* vb = v + (size_t)(bh / group) * S * dh;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int t0 = first_tile<T>(q0, window);
+  const int t1 = (min(q0 + BQ, S) - 1) / T;      // the tile of the block's last key
 
-  stage(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, scale);
+  stage_f32<BQ, DP, TC_THREADS>(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, vec);
+  stage_f32<T, DP, TC_THREADS>(kvs, kb + (size_t)t0 * T * dh, S - t0 * T, dh, vec);
+  stage_f32<T, DP, TC_THREADS>(kvs + TILE, vb + (size_t)t0 * T * dh, S - t0 * T, dh, vec);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
 
-  float m[TM], l[TM], acc[TM][DN];
+  float o[ND][4];                     // rows g, g + 8; columns 8 n + 2 tq + {0, 1}
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // l: this lane's part
+
+  for (int t = t0; t <= t1; ++t) {
+    const float* ks = kvs + ((t - t0) & 1) * 2 * TILE;
+    const float* vs = ks + TILE;
+    if (t < t1) {                     // tile t + 1 lands while tile t computes
+      float* nk = kvs + ((t + 1 - t0) & 1) * 2 * TILE;
+      const int k1 = (t + 1) * T;
+      stage_f32<T, DP, TC_THREADS>(nk, kb + (size_t)k1 * dh, S - k1, dh, vec);
+      stage_f32<T, DP, TC_THREADS>(nk + TILE, vb + (size_t)k1 * dh, S - k1, dh, vec);
+      cp_async_commit();
+    }
+    const int k0 = t * T;
+    // a warp none of whose rows sees a key of the tile (all past its last
+    // row, or all before the window of its first) skips it
+    if (r0 < S && k0 <= r0 + 15 && (window == 0 || k0 + T - 1 + window > r0)) {
+      float s[NK][4];                 // scores: keys 8 n + 2 tq + {0, 1}
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      mma_abt<LD, DP, NK>(s, qs, warp * 16, scale, ks, dh, lane);   // S = (q scale) K^T
+
+      // the tile that the diagonal, the window's edge or S cuts for one of
+      // this warp's rows is masked; every other is visible to all 16
+      const bool edge = k0 + T - 1 > r0 || k0 + T > S || (window > 0 && k0 + window <= r0 + 15);
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + g + (e >> 1) * 8;
+          const int key = k0 + n * 8 + tq * 2 + (e & 1);
+          if (edge && (key > row || key >= S || (window > 0 && key + window <= row)))
+            s[n][e] = NEG_INF;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+      float me[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+        me[r] = m_new == NEG_INF ? 0.f : m_new;   // all masked so far: p = 0
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[n][e] - me[e >> 1]);
+          s[n][e] = p;
+          l[e >> 1] += p;
+        }
+
+      // O = O alpha + P V, P straight from the score registers (keys
+      // permuted in each 8-key step, V's rows read in the same order)
+      mma_cb<LD, ND, NK>(o, s, vs, dh, alpha[0], alpha[1], lane);
+    }
+    cp_async_wait_all();
+    __syncthreads();   // tile t + 1 is in; the next copy overwrites tile t
   }
 
-  // kv tiles past the diagonal, and before the window of the tile's first
-  // row, are fully masked for every row: skipped
-  for (int t = first_tile(q0, window); t <= qt; ++t) {
-    const int k0 = t * TK;
-    stage(ks, kb + (size_t)k0 * dh, S - k0, dh, ld, 1.f);
-    stage(vs, vb + (size_t)k0 * dh, S - k0, dh, ld, 1.f);
-    __syncthreads();
-
-    float s[TM][TN];
+  float den[2];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = qs[(ty + TY * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ks[(tx + TX * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = q0 + ty + TY * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int key = k0 + tx + TX * j;
-        if (key > row || key >= S || (window > 0 && key + window <= row))
-          s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      const float m_exp = m_new == NEG_INF ? 0.f : m_new;   // all masked: p = 0
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float p = expf(s[i][j] - m_exp);
-        sum += p;
-        ps[(ty + TY * i) * PLD + tx + TX * j] = p;
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();   // ps complete
-
-    const int keys = min(TK, S - k0);   // zero-filled keys add nothing
-    for (int c = 0; c < keys; ++c) {
-      float p[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) p[i] = ps[(ty + TY * i) * PLD + c];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) {
-        const int col = tx + TX * j;
-        const float vv = col < dh ? vs[c * ld + col] : 0.f;
-#pragma unroll
-        for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
-    __syncthreads();   // the next tile overwrites ks, vs and ps
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-30f);
+    const int row = r0 + g + r * 8;
+    if (lse != nullptr && tq == 0 && row < S) lse[(size_t)bh * S + row] = m[r] + logf(den[r]);
   }
-
+  // through this warp's own 16 rows of the q tile (no other warp reads
+  // them), so that the stores are 16-byte and coalesced
+  float* os = qs + warp * 16 * LD;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = q0 + ty + TY * i;
-    if (row >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    if (lse != nullptr && tx == 0) lse[(size_t)bh * S + row] = m[i] + logf(den);
-    float* orow = out + ((size_t)bh * S + row) * dh;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) {
-      const int col = tx + TX * j;
-      if (col < dh) orow[col] = acc[i][j] / den;
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + tq * 2;
+    *reinterpret_cast<float2*>(os + g * LD + col) =
+        make_float2(o[n][0] / den[0], o[n][1] / den[0]);
+    *reinterpret_cast<float2*>(os + (g + 8) * LD + col) =
+        make_float2(o[n][2] / den[1], o[n][3] / den[1]);
+  }
+  __syncwarp();
+  const int rows = min(16, S - r0);              // rows >= S are not stored
+  float* ob = out + ((size_t)bh * S + r0) * dh;
+  if (vec) {
+    const int ch = dh / 4;
+    for (int e = lane; e < rows * ch; e += 32) {
+      const int r = e / ch, c = e - r * ch;
+      *reinterpret_cast<float4*>(ob + (size_t)r * dh + c * 4) =
+          *reinterpret_cast<const float4*>(os + r * LD + c * 4);
+    }
+  } else {
+    for (int e = lane; e < rows * dh; e += 32) {
+      const int r = e / dh, c = e - r * dh;
+      ob[(size_t)r * dh + c] = os[r * LD + c];
     }
   }
 }
@@ -258,7 +299,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const int g = lane >> 2, tq = lane & 3;        // accumulator row and column pair
   const bf16* kb = k + (size_t)(bh / group) * S * dh;
   const bf16* vb = v + (size_t)(bh / group) * S * dh;
-  const int t0 = first_tile(q0, window);
+  const int t0 = first_tile<TK>(q0, window);
   const bf16* qrow = qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
 
   stage_bf16<DP>(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, vec);
@@ -429,33 +470,41 @@ int bf16_dk(int dh) {
 }
 
 size_t smem_bytes(int dh, int dtype) {
-  if (dtype == 0)
-    return ((size_t)(BQ + 2 * TK) * (dh + 1) + (size_t)BQ * PLD) * sizeof(float);
+  if (dtype == 0) {
+    const int dp = f32_dp(dh);
+    return (size_t)(BQ + 4 * f32_tk(dp)) * f32_ld(dp) * sizeof(float);
+  }
   return (size_t)(BQ + 4 * TK) * (16 * bf16_dk(dh) + 8) * sizeof(bf16);
 }
 
-template <int DN>
+template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
                        int bh, int bkv, int S, int dh, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(dh, 0);
-  auto kernel = flash_attention_kernel<DN>;
+  auto kernel = flash_attention_kernel<DP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, bh);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                   aligned16(out);
+  const dim3 grid(bh, (S + BQ - 1) / BQ);
+  kernel<<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, S, dh, bh / bkv,
-      1.0f / sqrtf((float)dh), window);
+      1.0f / sqrtf((float)dh), window, vec);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
                          int bh, int bkv, int S, int dh, int window, cudaStream_t stream) {
-  if (dh <= 32) return launch_f32<2>(q, k, v, out, lse, bh, bkv, S, dh, window, stream);
-  if (dh <= 64) return launch_f32<4>(q, k, v, out, lse, bh, bkv, S, dh, window, stream);
-  if (dh <= 128) return launch_f32<8>(q, k, v, out, lse, bh, bkv, S, dh, window, stream);
-  return launch_f32<16>(q, k, v, out, lse, bh, bkv, S, dh, window, stream);
+#define FA_F32(DP) launch_f32<DP>(q, k, v, out, lse, bh, bkv, S, dh, window, stream)
+  switch (f32_dp(dh)) {
+    case 32: return FA_F32(32);
+    case 64: return FA_F32(64);
+    case 128: return FA_F32(128);
+    default: return FA_F32(256);
+  }
+#undef FA_F32
 }
 
 
@@ -506,8 +555,8 @@ int fa_smem_bytes(int dh, int dtype) {
 }
 
 // q (bh, S, dh); k, v (bkv, S, dh); out (bh, S, dh); all contiguous, one
-// dtype (0 = float32, 1 = bfloat16); bh % bkv == 0, 0 < dh <= 256; grid.y
-// (bh for float32, the 64-query tiles for bfloat16) at most 65535; window
+// dtype (0 = float32, 1 = bfloat16); bh % bkv == 0, 0 < dh <= 256; the
+// 64-query tiles (grid.y) at most 65535; window
 // 0 (causal) or the local window (>= 1).  lse: NULL (serving), or (bh, S)
 // float32 that receives each row's log-sum-exp m + log l of its scaled
 // scores, which the backward (flash_attention_bwd.cu) reads.
@@ -516,7 +565,7 @@ int fa_forward(const void* q, const void* k, const void* v, void* out, float* ls
                void* stream) {
   if (bh <= 0 || bkv <= 0 || bh % bkv || S <= 0 || dh <= 0 || dh > 256 || window < 0)
     return cudaErrorInvalidValue;
-  if ((dtype == 0 ? bh : (S + BQ - 1) / BQ) > 65535) return cudaErrorInvalidValue;
+  if ((S + BQ - 1) / BQ > 65535) return cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -89,12 +89,41 @@
 //  in f32 up to summation order and rounds dq, dk and dv to bf16 once, as
 //  mha_bwd_ref does.  The split costs 10 products where the bound counts 5.
 //
-// f32 (the parity dtype): CUDA cores, 256 threads as a 16 x 16 grid (the
-// forward's f32 layout), (a) then (b) with the G heads looped in the block
-// and (c); each thread owns R/16 rows and R/16 columns of a tile's scores
-// and R/16 rows by DN columns of the accumulators; P, dS (and P^T, dS^T) pass
-// to the second products through shared tiles with a +1 row pad.  Tiles of
-// R = 64 rows up to Dh 128 and 32 above, so that four tiles of Dh 256 fit.
+// f32 (the parity dtype): the bf16 work plan with its five products (seven
+// with S and dP recomputed for dQ) as 3xTF32 on mma.sync m16n8k8, the
+// forward's arithmetic (fa_common.cuh: hi/lo TF32 splits, chains of at most
+// 8 k steps from 0 added in f32, the accumulator fed back as an A fragment
+// with its k index permuted).  One TF32 pass misses the 2e-5 check against
+// mha_bwd_ref by ~50x; three keep f32 accuracy.  Bound: the five products
+// three times over at the 495 TFLOP/s TF32 peak (chip_smoke.py's
+// fa_bwd_bound): 0.1140 ms at Qwen2-0.5B's training shape, against 0.2807 at
+// the f32 CUDA-core rate.  Kernels a call:
+//  (a) fa_bwd_delta_kernel<float, 32>: D (bh, S) in f32.
+//  (b) fa_bwd_dkdv_f32_kernel<DP>: dK, dV of one kv row's 64-key tile pair
+//      (kt, T - 1 - kt) over one chunk of its G query heads, chunks chosen
+//      as bf16's; S^T = K Q^T directly, so P^T and dS^T are in accumulator
+//      layout for dV += P^T dO and dK += dS^T Q.  Up to Dh 64 4 warps of 16
+//      keys compute all of it; above, warpgroup 0 S^T, P^T (written to
+//      shared memory) and dV, warpgroup 1 dP^T, then dS^T and dK: two
+//      products each, one barrier between them.
+//  (s) fa_bwd_sum_kernel<float>: with more than one chunk, the partials
+//      summed in chunk order, written in f32.
+//  (c) fa_bwd_dq_f32_kernel<DP>: dQ of one (q row, 64-query tile), the
+//      heaviest first, S and dP recomputed, then dQ += dS K.
+//  No atomics, a fixed order: two calls give the same bits.  Tiles staged
+//  with 16-byte cp.async (plain loads where Dh % 4 != 0 or a pointer is
+//  not 16-byte aligned), rows DP + 4 floats (4 mod 32).  Q and dO are read
+//  both ways in (b) (ldmatrix rows for S^T and dP^T, scalar columns for dV
+//  and dK), and K in (c): the pad serves both patterns, since the permuted
+//  k index reads rows 2 q and 2 q + 1 (banks 8 q + g, 8 q + 4 + g), so no
+//  swizzle and no second copy.  Streamed tiles: 64 rows in two stages up
+//  to Dh 64; above, one stage of 64 queries in (b) at Dh 128 and of 32
+//  above, and of 32 keys in (c) (measured faster than two stages of half
+//  the rows).  Shared memory: (b) 105,472 / 152,064 / 208,128 B and (c)
+//  104,448 / 101,376 / 199,680 B at Dh 64 / 128 / 256.  Registers
+//  (-Xptxas -v): (b) 255 a thread from Dh 33 up (at Dh 64 it holds dK, dV,
+//  S^T and dP^T, 128 f32), (c) 168 / 204 / 255 at Dh 64 / 128 / 256, no
+//  spill.
 //
 // C interface (loaded with ctypes): fa_backward launches the kernels on the
 // given stream of the given device, leaves the caller's current device as
@@ -115,24 +144,12 @@
 namespace {
 
 constexpr int MAX_BWD_DH = 256;
+constexpr int THREADS = 256;          // the D and sum passes
 enum Route { ROUTE_F32 = 0, ROUTE_TMA = 1, ROUTE_COPY = 2 };
 
 // Whether query `qry` sees key `key` (absolute positions) in the forward.
 __device__ __forceinline__ bool visible(int qry, int key, int S, int window) {
   return key <= qry && qry < S && (window == 0 || key + window > qry);
-}
-
-// The last query tile of R rows that sees a key of the tile starting at k0.
-template <int R>
-__device__ __forceinline__ int last_q_tile(int k0, int S, int window) {
-  const int last = (S - 1) / R;
-  return window > 0 ? min(last, (k0 + R - 1 + window - 1) / R) : last;
-}
-
-// The first key tile of R keys that the query tile starting at q0 sees.
-template <int R>
-__device__ __forceinline__ int first_k_tile(int q0, int window) {
-  return window > 0 ? max(0, q0 - window + 1) / R : 0;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -183,243 +200,6 @@ fa_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   } else {
     out[(size_t)(2 * b) * sp + i] = i < S ? lse[(size_t)b * S + i] * LOG2E : 0.f;
     out[(size_t)(2 * b + 1) * sp + i] = acc;
-  }
-}
-
-// -- f32: CUDA cores -----------------------------------------------------------
-
-// Stage `rows` (<= R) rows of a contiguous (rows, dh) slab into
-// tile[R][ld] times `mul`, zero-filling rows past the slab.
-template <int R>
-__device__ __forceinline__ void stage_rows(float* __restrict__ tile, const float* __restrict__ src,
-                                           int rows, int dh, int ld, float mul) {
-  for (int e = threadIdx.x; e < R * dh; e += THREADS) {
-    const int r = e / dh, c = e - r * dh;
-    tile[r * ld + c] = r < rows ? src[(size_t)r * dh + c] * mul : 0.f;
-  }
-}
-
-template <int DN, int R>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dq, int S, int dh, int group, float scale,
-                     int window) {
-  constexpr int RM = R / TY, RN = R / TX, PL = R + 1;
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* qs = smem;                   // [R][ld], q * scale (the forward's s)
-  float* dos = qs + R * ld;           // [R][ld]
-  float* ks = dos + R * ld;           // [R][ld]
-  float* vs = ks + R * ld;            // [R][ld]
-  float* dss = vs + R * ld;           // [R][PL], dS of one tile
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tiles first
-  const int q0 = qt * R;
-  const float* kb = k + (size_t)(bh / group) * S * dh;
-  const float* vb = v + (size_t)(bh / group) * S * dh;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-
-  stage_rows<R>(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, scale);
-  stage_rows<R>(dos, dout + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, 1.f);
-  float rl[RM], rd[RM], acc[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q0 + ty + TY * i;
-    rl[i] = row < S ? lse[(size_t)bh * S + row] : 0.f;
-    rd[i] = row < S ? delta[(size_t)bh * S + row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int t = first_k_tile<R>(q0, window); t <= qt; ++t) {
-    const int k0 = t * R;
-    stage_rows<R>(ks, kb + (size_t)k0 * dh, S - k0, dh, ld, 1.f);
-    stage_rows<R>(vs, vb + (size_t)k0 * dh, S - k0, dh, ld, 1.f);
-    __syncthreads();
-
-    float s[RM][RN], dp[RM][RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float a[RM], e[RM], b[RN], c[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        a[i] = qs[(ty + TY * i) * ld + d];
-        e[i] = dos[(ty + TY * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        b[j] = ks[(tx + TX * j) * ld + d];
-        c[j] = vs[(tx + TX * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(e[i], c[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int row = q0 + ty + TY * i, key = k0 + tx + TX * j;
-        const float p = visible(row, key, S, window) ? expf(s[i][j] - rl[i]) : 0.f;
-        dss[(ty + TY * i) * PL + tx + TX * j] = p * (dp[i][j] - rd[i]);
-      }
-    __syncthreads();   // dss complete
-
-    const int keys = min(R, S - k0);
-    for (int c = 0; c < keys; ++c) {
-      float ds[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) ds[i] = dss[(ty + TY * i) * PL + c];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) {
-        const int col = tx + TX * j;
-        const float kv = col < dh ? ks[c * ld + col] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RM; ++i) acc[i][j] = fmaf(ds[i], kv, acc[i][j]);
-      }
-    }
-    __syncthreads();   // the next tile overwrites ks, vs and dss
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q0 + ty + TY * i;
-    if (row >= S) continue;
-    float* out = dq + ((size_t)bh * S + row) * dh;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) {
-      const int col = tx + TX * j;
-      if (col < dh) out[col] = acc[i][j] * scale;
-    }
-  }
-}
-
-template <int DN, int R>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       float* __restrict__ dk, float* __restrict__ dv, int S, int dh,
-                       int group, float scale, int window) {
-  constexpr int RM = R / TY, RN = R / TX, PL = R + 1;
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* ks = smem;                   // [R][ld]
-  float* vs = ks + R * ld;            // [R][ld]
-  float* qs = vs + R * ld;            // [R][ld], q * scale: dK needs no rescale
-  float* dos = qs + R * ld;           // [R][ld]
-  float* ps = dos + R * ld;           // [R][PL], P^T of one tile
-  float* dss = ps + R * PL;           // [R][PL], dS^T of one tile
-  float* lses = dss + R * PL;         // [R]
-  float* dels = lses + R;             // [R]
-  const int bkv = blockIdx.x;
-  const int k0 = blockIdx.y * R;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-
-  stage_rows<R>(ks, k + ((size_t)bkv * S + k0) * dh, S - k0, dh, ld, 1.f);
-  stage_rows<R>(vs, v + ((size_t)bkv * S + k0) * dh, S - k0, dh, ld, 1.f);
-  float adk[RM][DN], adv[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < DN; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  const int qt_last = last_q_tile<R>(k0, S, window);
-  for (int h = 0; h < group; ++h) {
-    const int bh = bkv * group + h;
-    for (int qt = blockIdx.y; qt <= qt_last; ++qt) {
-      const int q0 = qt * R;
-      stage_rows<R>(qs, q + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, scale);
-      stage_rows<R>(dos, dout + ((size_t)bh * S + q0) * dh, S - q0, dh, ld, 1.f);
-      for (int r = threadIdx.x; r < R; r += THREADS) {
-        lses[r] = q0 + r < S ? lse[(size_t)bh * S + q0 + r] : 0.f;
-        dels[r] = q0 + r < S ? delta[(size_t)bh * S + q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      float s[RM][RN], dp[RM][RN];    // keys ty + 16 i, queries tx + 16 j
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) s[i][j] = dp[i][j] = 0.f;
-      for (int d = 0; d < dh; ++d) {
-        float a[RM], e[RM], b[RN], c[RN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          a[i] = ks[(ty + TY * i) * ld + d];
-          e[i] = vs[(ty + TY * i) * ld + d];
-        }
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          b[j] = qs[(tx + TX * j) * ld + d];
-          c[j] = dos[(tx + TX * j) * ld + d];
-        }
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < RN; ++j) {
-            s[i][j] = fmaf(a[i], b[j], s[i][j]);
-            dp[i][j] = fmaf(e[i], c[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          const int key = k0 + ty + TY * i, ql = tx + TX * j;
-          const float p = visible(q0 + ql, key, S, window) ? expf(s[i][j] - lses[ql]) : 0.f;
-          ps[(ty + TY * i) * PL + ql] = p;
-          dss[(ty + TY * i) * PL + ql] = p * (dp[i][j] - dels[ql]);
-        }
-      __syncthreads();   // ps, dss complete
-
-      const int rows = min(R, S - q0);
-      for (int c = 0; c < rows; ++c) {
-        float pc[RM], dc[RM];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          pc[i] = ps[(ty + TY * i) * PL + c];
-          dc[i] = dss[(ty + TY * i) * PL + c];
-        }
-#pragma unroll
-        for (int j = 0; j < DN; ++j) {
-          const int col = tx + TX * j;
-          const float ov = col < dh ? dos[c * ld + col] : 0.f;
-          const float qv = col < dh ? qs[c * ld + col] : 0.f;
-#pragma unroll
-          for (int i = 0; i < RM; ++i) {
-            adv[i][j] = fmaf(pc[i], ov, adv[i][j]);
-            adk[i][j] = fmaf(dc[i], qv, adk[i][j]);
-          }
-        }
-      }
-      __syncthreads();   // the next tile overwrites qs, dos, ps, dss, lses, dels
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int key = k0 + ty + TY * i;
-    if (key >= S) continue;
-    float* krow = dk + ((size_t)bkv * S + key) * dh;
-    float* vrow = dv + ((size_t)bkv * S + key) * dh;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) {
-      const int col = tx + TX * j;
-      if (col < dh) {
-        krow[col] = adk[i][j];
-        vrow[col] = adv[i][j];
-      }
-    }
   }
 }
 
@@ -610,20 +390,26 @@ constexpr size_t dq_smem() {
          (2 * STAGES + 1) * sizeof(uint64_t);
 }
 
-// (b)'s work of one block: key tile kt(i) for i < nkt, then each head of
-// the chunk, then query tiles kt .. qlast(kt); tile n of it in that order.
+// (b)'s work of one block, bf16 (TQ 64) or f32: key tile kt(i) (64 keys)
+// for i < nkt, then each head of the chunk, then the query tiles of TQ rows
+// that see the key tile, qfirst(i) .. qlast(i); tile n of it in that order.
+template <int TQ>
 struct DkdvWork {
   int pair, T, nkt, S, window, heads;
   __device__ int kt(int i) const { return i == 0 ? pair : T - 1 - pair; }
-  __device__ int qlast(int i) const { return last_q_tile<64>(kt(i) * 64, S, window); }
-  __device__ int tiles(int i) const { return heads * (qlast(i) - kt(i) + 1); }
+  __device__ int qfirst(int i) const { return kt(i) * 64 / TQ; }
+  __device__ int qlast(int i) const {
+    const int last = (S - 1) / TQ;
+    return window > 0 ? min(last, (kt(i) * 64 + 63 + window - 1) / TQ) : last;
+  }
+  __device__ int len(int i) const { return qlast(i) - qfirst(i) + 1; }
+  __device__ int tiles(int i) const { return heads * len(i); }
   __device__ int total() const { return tiles(0) + (nkt == 2 ? tiles(1) : 0); }
   // (head of the chunk, query tile) of tile n
   __device__ void at(int n, int& h, int& qt) const {
     const int i = n < tiles(0) ? 0 : 1, r = i == 0 ? n : n - tiles(0);
-    const int len = qlast(i) - kt(i) + 1;
-    h = r / len;
-    qt = kt(i) + r % len;
+    h = r / len(i);
+    qt = qfirst(i) + r % len(i);
   }
 };
 
@@ -640,7 +426,7 @@ struct DkdvSmem {
 // The issuing warp: tile n of the block's work into stage s.
 template <int NP>
 __device__ __forceinline__ void issue_dkdv(const DkdvSmem<NP>& sm, const Maps& maps,
-                                           const BwdArgs& a, const DkdvWork& wk, int bh0,
+                                           const BwdArgs& a, const DkdvWork<64>& wk, int bh0,
                                            int n, int s, int lane) {
   int h, qt;
   wk.at(n, h, qt);
@@ -653,7 +439,7 @@ __device__ __forceinline__ void issue_dkdv(const DkdvSmem<NP>& sm, const Maps& m
 // `issuer`: this is warpgroup 0's warp 0, which loads the tiles.
 template <int NP, Role ROLE>
 __device__ __forceinline__ void dkdv_consumer(const BwdArgs& a, const Maps& maps,
-                                              const DkdvSmem<NP>& sm, const DkdvWork& wk,
+                                              const DkdvSmem<NP>& sm, const DkdvWork<64>& wk,
                                               int bkv, int chunk, int w, int lane,
                                               bool issuer) {
   constexpr int STAGES = DkdvShape<NP>::STAGES;
@@ -821,7 +607,7 @@ fa_bwd_dkdv_bf16_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
   const int pair = blockIdx.x % a.pairs;
   const int rest = blockIdx.x / a.pairs;
   const int chunk = rest % a.chunks, bkv = rest / a.chunks;
-  const DkdvWork wk{pair, T, pair == T - 1 - pair ? 1 : 2, a.S, a.window, a.heads};
+  const DkdvWork<64> wk{pair, T, pair == T - 1 - pair ? 1 : 2, a.S, a.window, a.heads};
   const int wg = warpgroup_index(), w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -843,11 +629,15 @@ fa_bwd_dkdv_bf16_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
   }
 }
 
-// (s): dk = scale sum_c dk_part[c], dv = sum_c dv_part[c], in chunk order.
+// (s): dk = scale sum_c dk_part[c], dv = sum_c dv_part[c], in chunk order,
+// written in T (bf16, or f32 for the f32 route).
+__device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fa_bwd_sum_kernel(const float* __restrict__ dk_part, const float* __restrict__ dv_part,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, size_t n, int chunks,
-                  float scale) {
+                  T* __restrict__ dk, T* __restrict__ dv, size_t n, int chunks, float scale) {
   for (size_t e = blockIdx.x * (size_t)THREADS + threadIdx.x; e < 2 * n;
        e += (size_t)gridDim.x * THREADS) {
     const bool is_k = e < n;
@@ -855,8 +645,8 @@ fa_bwd_sum_kernel(const float* __restrict__ dk_part, const float* __restrict__ d
     const float* src = (is_k ? dk_part : dv_part) + i;
     float acc = 0.f;
     for (int c = 0; c < chunks; ++c) acc += src[(size_t)c * n];
-    if (is_k) dk[i] = __float2bfloat16(acc * scale);
-    else dv[i] = __float2bfloat16(acc);
+    if (is_k) put(dk + i, acc * scale);
+    else put(dv + i, acc);
   }
 }
 
@@ -878,7 +668,7 @@ fa_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
   const int bh = blockIdx.x, bkv = bh / a.group;
   const int qt = gridDim.y - 1 - blockIdx.y;            // heaviest tiles first
   const int q0 = qt * 64;
-  const int t0 = first_k_tile<64>(q0, window);
+  const int t0 = first_tile<64>(q0, window);
   const int wg = warpgroup_index(), w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const bool issuer = wg == 0 && w == 0;                // loads the tiles
 
@@ -991,17 +781,327 @@ fa_bwd_dq_bf16_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
   }
 }
 
-// -- launch --------------------------------------------------------------------
+// -- f32: 3xTF32 on mma.sync --------------------------------------------------
 
-// f32 tile rows: 64 up to Dh 128, 32 above (four tiles of Dh 256 then fit).
-int f32_rows(int dh) { return dh > 128 ? 32 : 64; }
+// (b) at padded head dim DP: 4 warps (NWG 1) computing dK and dV of 16 keys
+// each, or above Dh 64 8 warps over the same 64 keys, warpgroup 0 S^T, P
+// and dV, warpgroup 1 dP^T, dS and dK, P passed through shared memory (two
+// products each); query tiles of TQ rows, double-buffered up to Dh 64,
+// single above, where larger tiles measured faster than double-buffered
+// smaller ones (chip_smoke.py --compare-parent's rows).
+template <int DP>
+struct DkdvF32 {
+  static constexpr int NWG = DP <= 64 ? 1 : 2;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int MIN_BLOCKS = NWG == 1 ? 2 : 1;
+  static constexpr int TQ = DP <= 128 ? 64 : 32;
+  static constexpr int STAGES = DP <= 64 ? 2 : 1;
+  static constexpr int LD = f32_ld(DP);
+};
+
+// (c): 4 warps of 16 query rows, key tiles of TK rows, double-buffered up
+// to Dh 64, single above.
+template <int DP>
+struct DqF32 {
+  static constexpr int TK = DP <= 64 ? 64 : 32;
+  static constexpr int STAGES = DP <= 64 ? 2 : 1;
+  static constexpr int LD = f32_ld(DP);
+};
+
+// Shared memory of (b): k, v; STAGES stages of (q, dO) and of (lse, D)
+// rows; with two warpgroups, P of 64 keys x TQ queries.
+template <int DP>
+constexpr size_t dkdv_f32_smem() {
+  using Sh = DkdvF32<DP>;
+  return ((2 * 64 + 2 * Sh::STAGES * Sh::TQ) * (size_t)Sh::LD + 2 * Sh::STAGES * Sh::TQ +
+          (Sh::NWG == 2 ? 64 * Sh::TQ : 0)) * sizeof(float);
+}
+
+// Shared memory of (c): q, dO; STAGES stages of (k, v).
+template <int DP>
+constexpr size_t dq_f32_smem() {
+  using Sh = DqF32<DP>;
+  return (2 * 64 + 2 * Sh::STAGES * Sh::TK) * (size_t)Sh::LD * sizeof(float);
+}
+
+struct F32Args {
+  const float *q, *k, *v, *dout, *lse, *delta;
+  float *dq, *dk, *dv;
+  float *dk_part, *dv_part;   // (chunks, BKV, S, Dh); unused with one chunk
+  int bkv, S, dh, group, heads, chunks, pairs, window, vec;
+  float scale;
+};
+
+// The whole of (b) for the warps of one role (warp w of its warpgroup):
+// every warp of the block stages the tiles and meets every barrier.  Roles:
+// DK_AND_DV all of it; DV_ONLY S^T, P (written to shared memory) and dV;
+// DK_ONLY dP^T, then (P read back) dS and dK.
+template <int DP, Role ROLE>
+__device__ __forceinline__ void dkdv_f32(const F32Args& a, float* smem,
+                                         const DkdvWork<DkdvF32<DP>::TQ>& wk, int bkv,
+                                         int chunk, int w, int lane) {
+  using Sh = DkdvF32<DP>;
+  constexpr int TQ = Sh::TQ, LD = Sh::LD, NQ = TQ / 8, ND = DP / 8, NT = Sh::THREADS;
+  constexpr int STAGES = Sh::STAGES;
+  constexpr bool DO_V = ROLE != DK_ONLY, DO_K = ROLE != DV_ONLY, SPLIT = ROLE != DK_AND_DV;
+  float* ks = smem;                    // [64][LD]
+  float* vs = ks + 64 * LD;            // [64][LD]
+  float* stage0 = vs + 64 * LD;        // stage s: q [TQ][LD] at 2 s TQ LD, dO after
+  float* rows0 = stage0 + 2 * STAGES * TQ * LD;   // stage s: lse [TQ] at 2 s TQ, D after
+  float* pw = rows0 + 2 * STAGES * TQ + w * 16 * TQ + lane;   // this warp's P, lane-major
+  const int S = a.S, window = a.window, g = lane >> 2, tq = lane & 3;
+  const int bh0 = bkv * a.group + chunk * a.heads;   // this block's first q row
+  auto issue = [&](int n) {            // item n into stage n % STAGES
+    int h, qt;
+    wk.at(n, h, qt);
+    const int q0 = qt * TQ, bh = bh0 + h;
+    float* qs = stage0 + (n % STAGES) * 2 * TQ * LD;
+    const size_t off = ((size_t)bh * S + q0) * a.dh;
+    stage_f32<TQ, DP, NT>(qs, a.q + off, S - q0, a.dh, a.vec);
+    stage_f32<TQ, DP, NT>(qs + TQ * LD, a.dout + off, S - q0, a.dh, a.vec);
+    float* lr = rows0 + (n % STAGES) * 2 * TQ;
+    for (int r = threadIdx.x; r < 2 * TQ; r += NT) {
+      const float* src = (r < TQ ? a.lse : a.delta) + (size_t)bh * S;
+      const int qi = q0 + r % TQ;
+      cp_async4(lr + r, qi < S ? src + qi : src, qi < S ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  auto load_kv = [&](int i) {
+    const int k0 = wk.kt(i) * 64;
+    const size_t off = ((size_t)bkv * S + k0) * a.dh;
+    stage_f32<64, DP, NT>(ks, a.k + off, S - k0, a.dh, a.vec);
+    stage_f32<64, DP, NT>(vs, a.v + off, S - k0, a.dh, a.vec);
+    cp_async_commit();
+  };
+
+  const int total = wk.total();
+  load_kv(0);
+  issue(0);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int i = 0, n = 0; i < wk.nkt; ++i) {
+    const int kw = wk.kt(i) * 64 + 16 * w;        // this warp's first key
+    float adv[DO_V ? ND : 1][4], adk[DO_K ? ND : 1][4];
+#pragma unroll
+    for (int c = 0; c < ND; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (DO_V) adv[c][e] = 0.f;
+        if constexpr (DO_K) adk[c][e] = 0.f;
+      }
+    for (int end = n + wk.tiles(i); n < end; ++n) {
+      if (STAGES == 2 && n + 1 < total) issue(n + 1);   // lands while item n computes
+      int h, qt;
+      wk.at(n, h, qt);
+      const int q0 = qt * TQ;
+      const float* qs = stage0 + (n % STAGES) * 2 * TQ * LD;
+      const float* dos = qs + TQ * LD;
+      const float* lr = rows0 + (n % STAGES) * 2 * TQ;
+      // a warp whose keys no query of the tile sees skips it
+      const bool live = kw < S && kw <= q0 + TQ - 1 && (window == 0 || kw + 15 + window > q0);
+      // S^T = K Q^T (and dP^T = V dO^T): keys g (+ 8) by queries 8 j + 2 tq
+      float st[NQ][4], dpt[DO_K ? NQ : 1][4];
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[j][e] = 0.f;
+            if constexpr (DO_K) dpt[j][e] = 0.f;
+          }
+        if constexpr (ROLE != DK_ONLY) {
+          mma_abt<LD, DP, NQ>(st, ks, 16 * w, 1.f, qs, a.dh, lane);
+          // P^T; 0 where the forward masks
+          const bool inside =
+              kw + 15 <= q0 && q0 + TQ <= S && (window == 0 || kw + window > q0 + TQ - 1);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = kw + g + 8 * (e >> 1), ql = 8 * j + 2 * tq + (e & 1);
+              st[j][e] = inside || visible(q0 + ql, key, S, window)
+                             ? expf(fmaf(st[j][e], a.scale, -lr[ql])) : 0.f;
+              if constexpr (SPLIT) pw[(4 * j + e) * 32] = st[j][e];
+            }
+        }
+        if constexpr (DO_K) mma_abt<LD, DP, NQ>(dpt, vs, 16 * w, 1.f, dos, a.dh, lane);
+      }
+      if constexpr (SPLIT) __syncthreads();        // P is in shared memory
+      if (live) {
+        if constexpr (DO_K) {
+          // dS^T = P^T o (dP^T - D)
+#pragma unroll
+          for (int j = 0; j < NQ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float p = SPLIT ? pw[(4 * j + e) * 32] : st[j][e];
+              dpt[j][e] = p * (dpt[j][e] - lr[TQ + 8 * j + 2 * tq + (e & 1)]);
+            }
+        }
+        // dV += P^T dO, dK += dS^T Q over the tile's queries
+        if constexpr (DO_V) mma_cb<LD, ND, NQ>(adv, st, dos, a.dh, 1.f, 1.f, lane);
+        if constexpr (DO_K) mma_cb<LD, ND, NQ>(adk, dpt, qs, a.dh, 1.f, 1.f, lane);
+      }
+      if (STAGES == 1 && n + 1 < total) {
+        __syncthreads();               // every warp has left item n
+        issue(n + 1);
+      }
+      cp_async_wait_all();
+      __syncthreads();                 // item n + 1 is in; the next copy overwrites item n
+    }
+
+    // dK = scale sum dS^T Q, dV: this chunk's sums, f32, or its partials
+    const bool one = a.chunks == 1;
+    const size_t row0 = (one ? (size_t)bkv : (size_t)chunk * a.bkv + bkv) * S + kw;
+#pragma unroll
+    for (int c = 0; c < ND; ++c)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = g + 8 * hr, col = 8 * c + 2 * tq;
+        if (kw + r >= S || col >= a.dh) continue;
+        if constexpr (DO_K)
+          store_pair(one ? a.dk : a.dk_part, row0 + r, col, a.dh,
+                     adk[c][2 * hr] * (one ? a.scale : 1.f),
+                     adk[c][2 * hr + 1] * (one ? a.scale : 1.f));
+        if constexpr (DO_V)
+          store_pair(one ? a.dv : a.dv_part, row0 + r, col, a.dh, adv[c][2 * hr],
+                     adv[c][2 * hr + 1]);
+      }
+    if (i + 1 < wk.nkt) {              // every warp has left k and v (the barrier above)
+      load_kv(i + 1);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DkdvF32<DP>::THREADS, DkdvF32<DP>::MIN_BLOCKS)
+fa_bwd_dkdv_f32_kernel(const F32Args a) {
+  using Sh = DkdvF32<DP>;
+  extern __shared__ __align__(16) float smem_f32[];
+  const int T = (a.S + 63) / 64;
+  const int pair = blockIdx.x % a.pairs;
+  const int rest = blockIdx.x / a.pairs;
+  const int chunk = rest % a.chunks, bkv = rest / a.chunks;
+  const DkdvWork<Sh::TQ> wk{pair, T, pair == T - 1 - pair ? 1 : 2, a.S, a.window, a.heads};
+  const int warp = threadIdx.x / 32, w = warp % 4, lane = threadIdx.x % 32;
+  if constexpr (Sh::NWG == 1) {
+    dkdv_f32<DP, DK_AND_DV>(a, smem_f32, wk, bkv, chunk, w, lane);
+  } else if (warp < 4) {
+    dkdv_f32<DP, DV_ONLY>(a, smem_f32, wk, bkv, chunk, w, lane);
+  } else {
+    dkdv_f32<DP, DK_ONLY>(a, smem_f32, wk, bkv, chunk, w, lane);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS)
+fa_bwd_dq_f32_kernel(const F32Args a) {
+  constexpr int T = DqF32<DP>::TK, LD = DqF32<DP>::LD, NK = T / 8, ND = DP / 8;
+  constexpr int TILE = T * LD, STAGES = DqF32<DP>::STAGES;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qs = smem_f32;                // [64][LD]
+  float* dos = qs + 64 * LD;           // [64][LD]
+  float* stage0 = dos + 64 * LD;       // stage s: k [T][LD] at 2 s TILE, v after (s < STAGES)
+  const int S = a.S, window = a.window;
+  const int bh = blockIdx.x, bkv = bh / a.group;
+  const int qt = gridDim.y - 1 - blockIdx.y;       // heaviest tiles first
+  const int q0 = qt * 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = q0 + 16 * warp;                   // this warp's first row
+  const int t0 = first_tile<T>(q0, window);
+  const int t1 = (min(q0 + 64, S) - 1) / T;        // the tile of the block's last key
+  const float* kb = a.k + (size_t)bkv * S * a.dh;
+  const float* vb = a.v + (size_t)bkv * S * a.dh;
+  auto issue = [&](int t) {
+    float* ks = stage0 + ((t - t0) % STAGES) * 2 * TILE;
+    const int k0 = t * T;
+    stage_f32<T, DP, TC_THREADS>(ks, kb + (size_t)k0 * a.dh, S - k0, a.dh, a.vec);
+    stage_f32<T, DP, TC_THREADS>(ks + TILE, vb + (size_t)k0 * a.dh, S - k0, a.dh, a.vec);
+    cp_async_commit();
+  };
+
+  const size_t off = ((size_t)bh * S + q0) * a.dh;
+  stage_f32<64, DP, TC_THREADS>(qs, a.q + off, S - q0, a.dh, a.vec);
+  stage_f32<64, DP, TC_THREADS>(dos, a.dout + off, S - q0, a.dh, a.vec);
+  issue(t0);
+  float rl[2], rd[2];                  // lse and D of rows r0 + g (+ 8)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
+    rl[hr] = row < S ? a.lse[(size_t)bh * S + row] : 0.f;
+    rd[hr] = row < S ? a.delta[(size_t)bh * S + row] : 0.f;
+  }
+  float adq[ND][4];
+#pragma unroll
+  for (int c = 0; c < ND; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adq[c][e] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int t = t0; t <= t1; ++t) {
+    if (STAGES == 2 && t < t1) issue(t + 1);   // lands while tile t computes
+    const float* ks = stage0 + ((t - t0) % STAGES) * 2 * TILE;
+    const float* vs = ks + TILE;
+    const int k0 = t * T;
+    if (r0 < S && k0 <= r0 + 15 && (window == 0 || k0 + T - 1 + window > r0)) {
+      // S = Q K^T, dP = dO V^T: rows g (+ 8) by keys 8 j + 2 tq
+      float st[NK][4], dpt[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      mma_abt<LD, DP, NK>(st, qs, 16 * warp, 1.f, ks, a.dh, lane);
+      mma_abt<LD, DP, NK>(dpt, dos, 16 * warp, 1.f, vs, a.dh, lane);
+      // dS = P o (dP - D); 0 where the forward masks
+      const bool inside =
+          k0 + T - 1 <= r0 && r0 + 16 <= S && (window == 0 || k0 + window > r0 + 15);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qry = r0 + g + 8 * (e >> 1), key = k0 + 8 * j + 2 * tq + (e & 1);
+          const float p = inside || visible(qry, key, S, window)
+                              ? expf(fmaf(st[j][e], a.scale, -rl[e >> 1])) : 0.f;
+          dpt[j][e] = p * (dpt[j][e] - rd[e >> 1]);
+        }
+      // dQ += dS K over the tile's keys
+      mma_cb<LD, ND, NK>(adq, dpt, ks, a.dh, 1.f, 1.f, lane);
+    }
+    if (STAGES == 1 && t < t1) {
+      __syncthreads();                 // every warp has left tile t
+      issue(t + 1);
+    }
+    cp_async_wait_all();
+    __syncthreads();                   // tile t + 1 is in; the next copy overwrites tile t
+  }
+
+#pragma unroll
+  for (int c = 0; c < ND; ++c)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = r0 + g + 8 * hr, col = 8 * c + 2 * tq;
+      if (row < S && col < a.dh)
+        store_pair(a.dq, (size_t)bh * S + row, col, a.dh, adq[c][2 * hr] * a.scale,
+                   adq[c][2 * hr + 1] * a.scale);
+    }
+}
+
+// -- launch --------------------------------------------------------------------
 
 // Dynamic shared memory of one block of (b) (`dkdv`) or (c), in bytes.
 size_t bwd_smem_bytes(int dh, int dtype, bool dkdv) {
   if (dtype == 0) {
-    const size_t r = f32_rows(dh);
-    const size_t tiles = 4 * r * (dh + 1);
-    return (tiles + (dkdv ? 2 * r * (r + 1) + 2 * r : r * (r + 1))) * sizeof(float);
+    switch (f32_dp(dh)) {
+      case 32: return dkdv ? dkdv_f32_smem<32>() : dq_f32_smem<32>();
+      case 64: return dkdv ? dkdv_f32_smem<64>() : dq_f32_smem<64>();
+      case 128: return dkdv ? dkdv_f32_smem<128>() : dq_f32_smem<128>();
+      default: return dkdv ? dkdv_f32_smem<256>() : dq_f32_smem<256>();
+    }
   }
   switch ((dh + 63) / 64) {
     case 1: return dkdv ? dkdv_smem<1>() : dq_smem<1>();
@@ -1028,26 +1128,43 @@ struct Args {
 
 int padded(int S) { return (S + 63) / 64 * 64; }
 
-// Blocks of (b) that an SM holds at once, at this Dh (its registers and
-// shared memory; asked of the runtime once).
+// Blocks of `kernel` that an SM holds at once (its registers and shared
+// memory), or 1 if the runtime cannot say.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
+  int n = 0;
+  if (allow_smem(kernel, smem) == cudaSuccess &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) == cudaSuccess &&
+      n > 0)
+    return n;
+  return 1;
+}
+
+// Blocks of (b) that an SM holds at once at this Dh, asked of the runtime
+// once an instantiation.
 template <int NP>
 int dkdv_blocks_per_sm() {
-  static int blocks = 0;
-  if (blocks == 0) {
-    const size_t smem = dkdv_smem<NP>();
-    int n = 0;
-    if (allow_smem(fa_bwd_dkdv_bf16_kernel<NP>, smem) == cudaSuccess &&
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fa_bwd_dkdv_bf16_kernel<NP>,
-                                                      DkdvShape<NP>::THREADS, smem) ==
-            cudaSuccess && n > 0)
-      blocks = n;
-    else
-      return 1;
-  }
+  static const int blocks =
+      blocks_per_sm(fa_bwd_dkdv_bf16_kernel<NP>, DkdvShape<NP>::THREADS, dkdv_smem<NP>());
   return blocks;
 }
 
-int dkdv_slots(int dh, int sms) {
+template <int DP>
+int dkdv_f32_blocks_per_sm() {
+  static const int blocks =
+      blocks_per_sm(fa_bwd_dkdv_f32_kernel<DP>, DkdvF32<DP>::THREADS, dkdv_f32_smem<DP>());
+  return blocks;
+}
+
+int dkdv_slots(int dh, int dtype, int sms) {
+  if (dtype == 0) {
+    switch (f32_dp(dh)) {
+      case 32: return sms * dkdv_f32_blocks_per_sm<32>();
+      case 64: return sms * dkdv_f32_blocks_per_sm<64>();
+      case 128: return sms * dkdv_f32_blocks_per_sm<128>();
+      default: return sms * dkdv_f32_blocks_per_sm<256>();
+    }
+  }
   switch ((dh + 63) / 64) {
     case 1: return sms * dkdv_blocks_per_sm<1>();
     case 2: return sms * dkdv_blocks_per_sm<2>();
@@ -1056,13 +1173,13 @@ int dkdv_slots(int dh, int sms) {
   }
 }
 
-// The G-chunks of (b): the divisor c of G whose grid (BKV x pairs x c
+// The G-chunks of (b), bf16 and f32 alike: the divisor c of G whose grid (BKV x pairs x c
 // blocks of G / c heads each, equal work) takes the fewest waves x tiles a
 // block on `slots` concurrent blocks; the smallest on ties (each chunk
 // beyond one costs the sum pass over its partials).  Qwen2-0.5B's
 // training shape: 7 (448 blocks of 17 tiles); Qwen2.5-14B's heads at Dh
 // 128: 1 (256 blocks, within a wave); RecurrentGemma-2B's: 10.
-int bf16_chunks(int bkv, int group, int S, int slots) {
+int head_chunks(int bkv, int group, int S, int slots) {
   const long long pairs = ((S + 63) / 64 + 1) / 2;
   int best = group;
   long long best_cost = -1;
@@ -1078,12 +1195,16 @@ int bf16_chunks(int bkv, int group, int S, int slots) {
   return best;
 }
 
-// Scratch floats: f32 D (bh, S); bf16 the ld rows (bh, 2, sp) and, with
-// more than one G-chunk, the chunks' partial dK and dV.
+// Floats of the f32 D rows (bh, S), rounded up to 4 so that the partials
+// after them stay 16-byte aligned.
+long long f32_delta_floats(int bh, int S) { return ((long long)bh * S + 3) / 4 * 4; }
+
+// Scratch floats: f32 the D rows, bf16 the ld rows (bh, 2, sp); with more
+// than one G-chunk, then the chunks' partial dK and dV.
 long long scratch_floats(int bh, int bkv, int S, int dh, int dtype, int sms) {
-  if (dtype == 0) return (long long)bh * S;
-  const int chunks = bf16_chunks(bkv, bh / bkv, S, dkdv_slots(dh, sms));
-  return 2LL * bh * padded(S) + (chunks == 1 ? 0 : 2LL * chunks * bkv * (long long)S * dh);
+  const int chunks = head_chunks(bkv, bh / bkv, S, dkdv_slots(dh, dtype, sms));
+  const long long rows = dtype == 0 ? f32_delta_floats(bh, S) : 2LL * bh * padded(S);
+  return rows + (chunks == 1 ? 0 : 2LL * chunks * bkv * (long long)S * dh);
 }
 
 template <typename T, int LANES>
@@ -1096,26 +1217,40 @@ cudaError_t launch_delta(const Args& a, const float* lse, float* out) {
   return cudaGetLastError();
 }
 
-template <int DN, int R>
-cudaError_t launch_f32(const Args& a) {
-  const int tiles = (a.S + R - 1) / R, group = a.bh / a.bkv;
-  const float scale = 1.0f / sqrtf((float)a.dh);
+template <int DP>
+cudaError_t launch_f32(const Args& a, int sms) {
+  const int T = (a.S + 63) / 64, group = a.bh / a.bkv;
+  const int chunks = head_chunks(a.bkv, group, a.S, dkdv_slots(a.dh, 0, sms));
+  const long long n = (long long)a.bkv * a.S * a.dh;
+  if (a.scratch_floats < scratch_floats(a.bh, a.bkv, a.S, a.dh, 0, sms))
+    return cudaErrorInvalidValue;
   auto cf = [](const void* p) { return static_cast<const float*>(p); };
   auto mf = [](void* p) { return static_cast<float*>(p); };
   float* delta = a.scratch;
+  float* part = delta + f32_delta_floats(a.bh, a.S);
+  const bool vec = a.dh % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+                   aligned16(a.dout);
+  const F32Args b{cf(a.q), cf(a.k), cf(a.v), cf(a.dout), a.lse, delta, mf(a.dq), mf(a.dk),
+                  mf(a.dv), part, part + (chunks > 1 ? chunks * n : 0), a.bkv, a.S, a.dh,
+                  group, group / chunks, chunks, (T + 1) / 2, a.window, vec ? 1 : 0,
+                  1.0f / sqrtf((float)a.dh)};
   cudaError_t err = launch_delta<float, 32>(a, nullptr, delta);
   if (err != cudaSuccess) return err;
-  size_t smem = bwd_smem_bytes(a.dh, 0, true);
-  if ((err = allow_smem(fa_bwd_dkdv_f32_kernel<DN, R>, smem)) != cudaSuccess) return err;
-  fa_bwd_dkdv_f32_kernel<DN, R><<<dim3(a.bkv, tiles), THREADS, smem, a.stream>>>(
-      cf(a.q), cf(a.k), cf(a.v), cf(a.dout), a.lse, delta, mf(a.dk), mf(a.dv), a.S, a.dh,
-      group, scale, a.window);
+  size_t smem = dkdv_f32_smem<DP>();
+  if ((err = allow_smem(fa_bwd_dkdv_f32_kernel<DP>, smem)) != cudaSuccess) return err;
+  fa_bwd_dkdv_f32_kernel<DP><<<a.bkv * chunks * b.pairs, DkdvF32<DP>::THREADS, smem,
+                               a.stream>>>(b);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = bwd_smem_bytes(a.dh, 0, false);
-  if ((err = allow_smem(fa_bwd_dq_f32_kernel<DN, R>, smem)) != cudaSuccess) return err;
-  fa_bwd_dq_f32_kernel<DN, R><<<dim3(a.bh, tiles), THREADS, smem, a.stream>>>(
-      cf(a.q), cf(a.k), cf(a.v), cf(a.dout), a.lse, delta, mf(a.dq), a.S, a.dh, group,
-      scale, a.window);
+  if (chunks > 1) {
+    const long long blocks = (2 * n + THREADS - 1) / THREADS;
+    fa_bwd_sum_kernel<float><<<(unsigned)(blocks < 8 * sms ? blocks : 8 * sms), THREADS, 0,
+                               a.stream>>>(b.dk_part, b.dv_part, b.dk, b.dv, (size_t)n, chunks,
+                                           b.scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  smem = dq_f32_smem<DP>();
+  if ((err = allow_smem(fa_bwd_dq_f32_kernel<DP>, smem)) != cudaSuccess) return err;
+  fa_bwd_dq_f32_kernel<DP><<<dim3(a.bh, T), TC_THREADS, smem, a.stream>>>(b);
   return cudaGetLastError();
 }
 
@@ -1140,7 +1275,7 @@ cudaError_t ld_map(EncodeTiled encode, CUtensorMap* map, const float* ld, int bh
 template <int NP>
 cudaError_t launch_bf16(const Args& a, int sms, int* route) {
   const int T = (a.S + 63) / 64, group = a.bh / a.bkv, sp = padded(a.S);
-  const int chunks = bf16_chunks(a.bkv, group, a.S, dkdv_slots(a.dh, sms));
+  const int chunks = head_chunks(a.bkv, group, a.S, dkdv_slots(a.dh, 1, sms));
   const long long n = (long long)a.bkv * a.S * a.dh;
   if (a.scratch_floats < scratch_floats(a.bh, a.bkv, a.S, a.dh, 1, sms))
     return cudaErrorInvalidValue;
@@ -1179,8 +1314,8 @@ cudaError_t launch_bf16(const Args& a, int sms, int* route) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (chunks > 1) {
     const long long blocks = (2 * n + THREADS - 1) / THREADS;
-    fa_bwd_sum_kernel<<<(unsigned)(blocks < 8 * sms ? blocks : 8 * sms), THREADS, 0,
-                        a.stream>>>(b.dk_part, b.dv_part, b.dk, b.dv, (size_t)n, chunks,
+    fa_bwd_sum_kernel<bf16><<<(unsigned)(blocks < 8 * sms ? blocks : 8 * sms), THREADS, 0,
+                              a.stream>>>(b.dk_part, b.dv_part, b.dk, b.dv, (size_t)n, chunks,
                                     b.scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -1193,10 +1328,12 @@ cudaError_t launch_bf16(const Args& a, int sms, int* route) {
 cudaError_t dispatch(const Args& a, int dtype, int sms, int* route) {
   if (dtype == 0) {
     *route = ROUTE_F32;
-    if (a.dh <= 32) return launch_f32<2, 64>(a);
-    if (a.dh <= 64) return launch_f32<4, 64>(a);
-    if (a.dh <= 128) return launch_f32<8, 64>(a);
-    return launch_f32<16, 32>(a);
+    switch (f32_dp(a.dh)) {
+      case 32: return launch_f32<32>(a, sms);
+      case 64: return launch_f32<64>(a, sms);
+      case 128: return launch_f32<128>(a, sms);
+      default: return launch_f32<256>(a, sms);
+    }
   }
   switch ((a.dh + 63) / 64) {
     case 1: return launch_bf16<1>(a, sms, route);
@@ -1238,18 +1375,17 @@ long long fa_bwd_scratch_floats(int bh, int bkv, int S, int dh, int dtype, int d
 // q, o, dout, dq (bh, S, dh); k, v, dk, dv (bkv, S, dh); all contiguous, one
 // dtype (0 = float32, 1 = bfloat16); lse (bh, S) float32 from fa_forward;
 // scratch at least fa_bwd_scratch_floats floats, 16-byte aligned.  bh % bkv
-// == 0, 0 < dh <= 256, the 64-row tiles of S at most 65535 (f32 above Dh
-// 128: the 32-row tiles), window 0 (causal) or the local window (>= 1), as
-// in the forward that wrote lse.  *route receives 0 (f32), 1 (bf16, TMA) or
-// 2 (bf16, tiles copied by a warp).
+// == 0, 0 < dh <= 256, the 64-row tiles of S at most 65535, window 0
+// (causal) or the local window (>= 1), as in the forward that wrote lse.
+// *route receives 0 (f32), 1 (bf16, TMA) or 2 (bf16, tiles copied by a
+// warp).
 int fa_backward(const void* q, const void* k, const void* v, const void* o, const void* dout,
                 const float* lse, void* dq, void* dk, void* dv, float* scratch,
                 long long scratch_floats_given, int bh, int bkv, int S, int dh, int window,
                 int dtype, int device, void* stream, int* route) {
   if (bh <= 0 || bkv <= 0 || bh % bkv || S <= 0 || dh <= 0 || dh > MAX_BWD_DH || window < 0)
     return cudaErrorInvalidValue;
-  const int rows = dtype == 0 ? f32_rows(dh) : 64;
-  if ((S + rows - 1) / rows > 65535 || (dtype != 0 && dtype != 1) || !aligned16(scratch))
+  if ((S + 63) / 64 > 65535 || (dtype != 0 && dtype != 1) || !aligned16(scratch))
     return cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;

@@ -122,9 +122,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal GQA attention: q (BH, S, Dh); k, v (BKV, S, Dh), contiguous,
     with BH = BKV·G; q row b reads kv row b // G; with ``window`` > 0 query
     i sees keys i - window + 1 .. i only.  Returns (BH, S, Dh) in q's
-    dtype.  On the card, f32 inputs are computed in f32 on the CUDA cores;
-    bf16 inputs with f32 accumulation and bf16 tensor-core products, with P
-    split hi/lo so that the PV product keeps ~16 bits of each probability.
+    dtype.  On the card, f32 inputs are computed on the tensor cores in
+    3xTF32 (each operand split into two TF32 parts, three products, f32
+    sums), which keeps f32 accuracy; bf16 inputs with f32 accumulation and
+    bf16 tensor-core products, with P split hi/lo so that the PV product
+    keeps ~16 bits of each probability.
     Differentiable: on the card through the backward kernels, on the CPU
     through ``mha_ref``."""
     _check(q, k, v, causal, window)
@@ -140,12 +142,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _forward(q, k, v, window: int, with_lse: bool):
     """Launch the forward kernel; (out, lse or None)."""
     bh, s, dh = q.shape
-    # grid.y: the q rows BH for the f32 kernel, the 64-query tiles for bf16
-    if q.dtype == torch.float32 and bh > _MAX_GRID_Y:
-        raise ValueError(f"BH={bh} exceeds the f32 kernel's grid ({_MAX_GRID_Y})")
-    if q.dtype == torch.bfloat16 and -(-s // _BQ) > _MAX_GRID_Y:
-        raise ValueError(f"S={s} exceeds the bf16 kernel's grid "
-                         f"({_MAX_GRID_Y} tiles of {_BQ})")
+    # grid (BH, the 64-query tiles): the tiles are grid.y, in both dtypes
+    if -(-s // _BQ) > _MAX_GRID_Y:
+        raise ValueError(f"S={s} exceeds the kernel's grid ({_MAX_GRID_Y} tiles of {_BQ})")
     out = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device) if with_lse else None
     err = _kernels().fa_forward(
@@ -178,9 +177,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, window: int = 0):
                         f"{dout.dtype}, {lse.dtype}")
     if not all(t.device == q.device and t.is_contiguous() for t in (out, dout, lse)):
         raise ValueError("out, dout and lse must be contiguous and on q's device")
-    rows = 32 if q.dtype == torch.float32 and dh > 128 else _BQ    # the f32 tiles above 128
-    if -(-s // rows) > _MAX_GRID_Y:
-        raise ValueError(f"S={s} exceeds the backward's grid ({_MAX_GRID_Y} tiles of {rows})")
+    if -(-s // _BQ) > _MAX_GRID_Y:
+        raise ValueError(f"S={s} exceeds the backward's grid ({_MAX_GRID_Y} tiles of {_BQ})")
     lib, code, dev = _bwd_kernels(), _DTYPE_CODES[q.dtype], q.device.index
     n_scratch = lib.fa_bwd_scratch_floats(bh, k.shape[0], s, dh, code, dev)
     if n_scratch < 0:

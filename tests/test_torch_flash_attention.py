@@ -22,6 +22,8 @@ from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF, mha_ref
 
+from _tf32 import tf32_mm
+
 SHAPES = [(4, 4, 128, 64), (8, 2, 256, 64), (2, 1, 64, 128), (6, 3, 96, 40),
           (14, 2, 48, 64), (6, 3, 100, 40)]
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -132,6 +134,58 @@ def test_p_split_is_what_keeps_the_bf16_kernel_within_its_tolerance():
 
     assert misses(split_p=True) == 0
     assert misses(split_p=False) > want.numel() // 100
+
+
+# chip_smoke.py's FA_TOLERANCE["float32"] (tests/test_kernels.py:64's 2e-5),
+# which the card's f32 kernel meets against mha_ref
+FA_F32_TOL = {"rtol": 2e-5, "atol": 2e-5}
+
+
+def _masked(scores, s, window):
+    i = torch.arange(s)
+    seen = (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - window) if window else True)
+    return torch.where(seen, scores, torch.full_like(scores, NEG_INF))
+
+
+def _f32_kernel_arithmetic(q, k, v, window, split):
+    """The f32 kernel's arithmetic on the CPU: S = (q scale) K^T and O = P V
+    with every product through ``tf32_mm`` (3xTF32 with ``split``, one TF32
+    pass without), P = exp(S - row max) and l = sum P in f32, O / l.  One
+    row max in place of the kernel's running one, as in
+    ``_bf16_kernel_arithmetic``."""
+    bh, s, dh = q.shape
+    g = bh // k.shape[0]
+    kf, vf = (x.repeat_interleave(g, dim=0) for x in (k, v))
+    scores = _masked(tf32_mm(q * (1.0 / math.sqrt(dh)), kf.transpose(1, 2), split), s, window)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    return tf32_mm(p, vf, split) / p.sum(dim=-1, keepdim=True)
+
+
+def _attention_f64(q, k, v, window):
+    bh, s, dh = q.shape
+    g = bh // k.shape[0]
+    kf, vf = (x.double().repeat_interleave(g, dim=0) for x in (k, v))
+    scores = _masked(q.double() @ kf.transpose(1, 2) / math.sqrt(dh), s, window)
+    return torch.softmax(scores, dim=-1) @ vf
+
+
+@pytest.mark.parametrize("dh,window", [(64, 0), (128, 0), (256, 0), (64, 100)],
+                         ids=["dh64", "dh128", "dh256", "dh64-window100"])
+def test_tf32x3_keeps_the_f32_forward_within_its_tolerance(dh, window):
+    """Why the f32 kernel runs each product as three TF32 products of hi/lo
+    parts: that arithmetic meets FA_F32_TOL against float64 with room to
+    spare (worst share of the tolerance <= 0.25), where one TF32 pass
+    misses it."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 2, 512, dh, seed=5))
+    want = _attention_f64(q, k, v, window)
+
+    def worst(split):
+        got = _f32_kernel_arithmetic(q, k, v, window, split).double()
+        return float(((got - want).abs()
+                      / (FA_F32_TOL["atol"] + FA_F32_TOL["rtol"] * want.abs())).max())
+
+    assert worst(split=True) <= 0.25
+    assert worst(split=False) > 1.0
 
 
 def test_cuda_request_without_a_card_raises():

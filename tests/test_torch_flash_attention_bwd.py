@@ -15,6 +15,8 @@ formulas and autograd's (or XLA's) chain.  The reference's ``mha_ref`` has
 no window, so the window cases are held to the port's autograd only.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,9 @@ import torch
 
 from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import lse_ref, mha_bwd_ref, mha_ref
+from repro_torch.kernels.flash_attention.ref import NEG_INF, lse_ref, mha_bwd_ref, mha_ref
+
+from _tf32 import tf32_mm
 
 RTOL, ATOL_SHARE = 1e-5, 1e-5
 # (BH, BKV, S, Dh, window)
@@ -70,6 +74,71 @@ def test_mha_bwd_ref_matches_jax_grad_of_the_reference(bh, bkv, s, dh, window):
     _, vjp = jax.vjp(jax_mha_ref, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     for got, want in zip(_explicit(q, k, v, do, 0), vjp(jnp.asarray(do))):
         _close(got, want)
+
+
+# chip_smoke.py's FA_BWD_TOLERANCE["float32"]: rtol 2e-5 and atol 2e-5 of
+# each gradient's largest entry, which the card's f32 kernels meet
+FA_BWD_F32_TOL = (2e-5, 2e-5)
+
+
+def _visible(s, window):
+    i = torch.arange(s)
+    return (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - window) if window else True)
+
+
+def _f32_kernels_arithmetic(q, k, v, do, window, split):
+    """The f32 forward and backward kernels' arithmetic on the CPU, every
+    product through ``tf32_mm`` (3xTF32 with ``split``, one TF32 pass
+    without): the forward's S = (q scale) K^T, O = P V / l and lse; then D =
+    rowsum(dO o O) in f32, S recomputed as (Q K^T) scale, P = exp(S - lse)
+    (0 where masked), dP = dO V^T, dS = P o (dP - D), dV = P^T dO, dK =
+    scale dS^T Q and dQ = scale dS K, dK and dV summed over the group."""
+    bh, s, dh = q.shape
+    bkv = k.shape[0]
+    g, scale = bh // bkv, 1.0 / math.sqrt(dh)
+    kf, vf = (x.repeat_interleave(g, dim=0) for x in (k, v))
+    seen = _visible(s, window)
+    scores = torch.where(seen, tf32_mm(q * scale, kf.transpose(1, 2), split), NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o, lse = tf32_mm(p, vf, split) / l, m + torch.log(l)
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    p = torch.where(seen, torch.exp(tf32_mm(q, kf.transpose(1, 2), split) * scale - lse), 0.0)
+    ds = p * (tf32_mm(do, vf.transpose(1, 2), split) - delta)
+    dv = tf32_mm(p.transpose(1, 2), do, split).view(bkv, g, s, dh).sum(1)
+    dk = (scale * tf32_mm(ds.transpose(1, 2), q, split)).view(bkv, g, s, dh).sum(1)
+    return scale * tf32_mm(ds, kf, split), dk, dv
+
+
+def _grads_f64(q, k, v, do, window):
+    """dq, dk, dv of causal GQA attention in float64, by autograd."""
+    bh, s, dh = q.shape
+    g = bh // k.shape[0]
+    q, k, v = (x.double().requires_grad_(True) for x in (q, k, v))
+    scores = q @ k.repeat_interleave(g, dim=0).transpose(1, 2) / math.sqrt(dh)
+    scores = torch.where(_visible(s, window), scores, float("-inf"))
+    out = torch.softmax(scores, dim=-1) @ v.repeat_interleave(g, dim=0)
+    return torch.autograd.grad(out, (q, k, v), do.double())
+
+
+@pytest.mark.parametrize("dh,window", [(64, 0), (128, 0), (256, 0), (64, 100)],
+                         ids=["dh64", "dh128", "dh256", "dh64-window100"])
+def test_tf32x3_keeps_the_f32_backward_within_its_tolerance(dh, window):
+    """Why the f32 backward runs each of its products as three TF32 products
+    of hi/lo parts: that arithmetic meets FA_BWD_F32_TOL against float64
+    with room to spare (worst share of the tolerance <= 0.25), where one
+    TF32 pass misses it."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(4, 2, 512, dh, seed=5))
+    want = _grads_f64(q, k, v, do, window)
+    rtol, share = FA_BWD_F32_TOL
+
+    def worst(split):
+        return max(float(((g.double() - w).abs() / (share * w.abs().max() + rtol * w.abs())).max())
+                   for g, w in zip(_f32_kernels_arithmetic(q, k, v, do, window, split), want))
+
+    assert worst(split=True) <= 0.25
+    assert worst(split=False) > 1.0
 
 
 def test_lse_ref_reproduces_the_softmax():

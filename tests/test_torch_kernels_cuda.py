@@ -249,17 +249,21 @@ def test_flash_attention_bf16_takes_rows_off_16_byte_alignment(device):
 
 
 def test_flash_attention_smem_bytes_by_dtype(device):
-    """The f32 kernel stages f32 tiles with a one-float row pad; the bf16
-    kernel five bf16 tiles of Dh rounded up to 16 (above 128: to 192 or
-    256), plus 8.  Both stay under the card's 232,448 B opt-in limit at
-    Dh 256."""
-    assert fa_ops.smem_bytes(64, dtype=torch.float32) == (192 * 65 + 64 * 65) * 4
+    """The f32 kernel stages a 64-row q tile and two stages of k and v tiles
+    of 64 keys (Dh up to 64) or 32 (above), f32 with Dh zero-filled up to
+    32, 64, 128 or 256 and a 4-float row pad; the bf16 kernel five bf16
+    tiles of Dh rounded up to 16 (above 128: to 192 or 256), plus 8.  Both
+    stay under the card's 232,448 B opt-in limit at Dh 256."""
+    assert fa_ops.smem_bytes(32, dtype=torch.float32) == (64 + 4 * 64) * 36 * 4 == 46_080
+    assert fa_ops.smem_bytes(64, dtype=torch.float32) == (64 + 4 * 64) * 68 * 4 == 87_040
+    assert fa_ops.smem_bytes(40, dtype=torch.float32) == 87_040
+    assert fa_ops.smem_bytes(128, dtype=torch.float32) == (64 + 4 * 32) * 132 * 4 == 101_376
     assert fa_ops.smem_bytes(64, dtype=torch.bfloat16) == 320 * 72 * 2
     assert fa_ops.smem_bytes(40, dtype=torch.bfloat16) == 320 * 56 * 2
     assert fa_ops.smem_bytes(128, dtype=torch.bfloat16) == 320 * 136 * 2
     assert fa_ops.smem_bytes(144, dtype=torch.bfloat16) == 320 * 200 * 2
     assert fa_ops.smem_bytes(256, dtype=torch.bfloat16) == 320 * 264 * 2 == 168_960
-    assert fa_ops.smem_bytes(256, dtype=torch.float32) == (192 * 257 + 64 * 65) * 4 == 214_016
+    assert fa_ops.smem_bytes(256, dtype=torch.float32) == (64 + 4 * 32) * 260 * 4 == 199_680
 
 
 # Dh above 128 (the bf16 kernel keeps q in shared memory there; RecurrentGemma's
@@ -286,14 +290,22 @@ def test_flash_attention_kernel_matches_plain_at_large_dh_and_windows(
 
 
 def test_flash_attention_grid_limit_is_by_dtype(device):
-    """The f32 kernel puts the q rows BH on grid.y (at most 65,535), the bf16
-    kernel its 64-query tiles: bf16 takes BH 65,536, f32 refuses it."""
-    q, k, v = _qkv(65_536, 8_192, 16, 8, torch.bfloat16, device, seed=3)
-    got = fa_ops.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), mha_ref(q, k, v).float(), **FA_BF16_TIGHT)
-    with pytest.raises(ValueError, match="BH=65536"):
-        fa_ops.flash_attention(q.float(), k.float(), v.float())
+    """Both kernels put the q rows BH on grid.x and their 64-query tiles on
+    grid.y (at most 65,535): each dtype takes BH 65,536, and each refuses
+    an S of more than 65,535 tiles before it launches."""
+    q, k, v = _qkv(65_536, 8_192, 16, 8, torch.float32, device, seed=3)
+    for dtype, tol in ((torch.bfloat16, FA_BF16_TIGHT),
+                       (torch.float32, {"rtol": 2e-5, "atol": 2e-5})):
+        qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+        got = fa_ops.flash_attention(qd, kd, vd)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), mha_ref(qd, kd, vd).float(), **tol)
+    del q, k, v, qd, kd, vd, got
+    s = 65_535 * 64 + 1
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros((1, s, 1), dtype=dtype, device=device)
+        with pytest.raises(ValueError, match=f"S={s}"):
+            fa_ops.flash_attention(x, x, x)
 
 
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(device):
@@ -461,15 +473,62 @@ def test_flash_attention_trains_at_dh_256(device):
         assert torch.equal(g, w)
 
 
+def test_flash_attention_f32_backward_spreads_heads_over_chunks_and_repeats_bit_for_bit(device):
+    """Qwen2-0.5B's training shape in f32 (G 7): the dK/dV pass spreads the
+    group's heads over more than one chunk (its scratch holds the chunks'
+    partials beside D), and the partials are summed in a fixed order, so
+    two calls give the same bits."""
+    bh, bkv, s, dh = 56, 8, 1024, 64
+    scratch = fa_ops._bwd_kernels().fa_bwd_scratch_floats(bh, bkv, s, dh, 0, device.index or 0)
+    assert scratch > -(-bh * s // 4) * 4          # D rows and the partials
+    q, k, v, do = _bwd_inputs(bh, bkv, s, dh, torch.float32, device, seed=6)
+    out, lse = fa_ops._forward(q, k, v, 0, with_lse=True)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, do, lse)
+    want = mha_bwd_ref(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _bwd_close(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("case", ["dh33", "offset"])
+def test_flash_attention_f32_takes_rows_off_16_byte_alignment(device, case):
+    """Dh 33 (rows of 132 bytes) or q, k, v and dO one float into their
+    storage: the f32 forward and backward stage their tiles with plain
+    loads instead of cp.async, and agree with the plain versions."""
+    dh = 33 if case == "dh33" else 64
+    q, k, v, do = _bwd_inputs(6, 3, 200, dh, torch.float32, device, seed=7)
+    if case == "offset":
+        def shifted(x):
+            y = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)[1:].view(x.shape)
+            y.copy_(x)
+            assert y.is_contiguous() and y.data_ptr() % 16
+            return y
+        q, k, v, do = (shifted(x) for x in (q, k, v, do))
+    out, lse = fa_ops._forward(q, k, v, 30, with_lse=True)
+    want_out = mha_ref(q, k, v, window=30)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, 30)
+    want = mha_bwd_ref(q, k, v, out, do, lse, window=30)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want_out, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, lse_ref(q, k, window=30), rtol=0, atol=1e-5)
+    for g, w in zip(got, want):
+        _bwd_close(g, w, torch.float32)
+
+
 def test_flash_attention_backward_smem_bytes(device):
     """bf16: (b) holds the k and v tiles and a ring of q, dO, lse and D
     rows, (c) the q and dO tiles and a ring of k and v, each ring 4 stages
     deep up to Dh 64 and 2 above, each tile 64 rows of
     64-column panels (8 KB), with 1 KB to align the panels and the
-    barriers; f32: (b) stages k, v, q and dO tiles and lse and D rows, (c)
-    the four tiles, both also P and dS tiles (a one-float row pad), of 64
-    rows up to Dh 128 and 32 above.  Every Dh up to 256 stays under the
-    232,448 B opt-in limit."""
+    barriers; f32 (Dh zero-filled up to 32, 64, 128 or 256, a 4-float row
+    pad): (b) the 64-key k and v tiles and q and dO tiles with their lse
+    and D rows, two stages of 64 queries up to Dh 64, one of 64 up to 128
+    and of 32 above, and above Dh 64 the P tile that its dV warps hand to
+    its dK warps; (c) the 64-query q and dO tiles and k and v tiles, two
+    stages of 64 keys up to Dh 64, one of 32 above.  Every Dh up to 256
+    stays under the 232,448 B opt-in limit."""
     assert fa_ops.bwd_smem_bytes(64, dtype=torch.bfloat16) == {
         "dkdv": 1024 + 2 * 8192 + 4 * (2 * 8192 + 2 * 64 * 4) + 10 * 8,
         "dq": 1024 + 2 * 8192 + 4 * 2 * 8192 + 9 * 8}
@@ -479,10 +538,14 @@ def test_flash_attention_backward_smem_bytes(device):
     assert fa_ops.bwd_smem_bytes(256, dtype=torch.bfloat16) == {
         "dkdv": 1024 + 8 * 8192 + 2 * (8 * 8192 + 2 * 64 * 4) + 6 * 8,
         "dq": 1024 + 8 * 8192 + 2 * 8 * 8192 + 5 * 8}
+    assert fa_ops.bwd_smem_bytes(64, dtype=torch.float32) == {
+        "dkdv": ((2 * 64 + 4 * 64) * 68 + 4 * 64) * 4, "dq": (2 * 64 + 4 * 64) * 68 * 4}
     assert fa_ops.bwd_smem_bytes(128, dtype=torch.float32) == {
-        "dkdv": (256 * 129 + 2 * 64 * 65 + 128) * 4, "dq": (256 * 129 + 64 * 65) * 4}
+        "dkdv": ((2 * 64 + 2 * 64) * 132 + 2 * 64 + 64 * 64) * 4,
+        "dq": (2 * 64 + 2 * 32) * 132 * 4}
     assert fa_ops.bwd_smem_bytes(256, dtype=torch.float32) == {
-        "dkdv": (128 * 257 + 2 * 32 * 33 + 64) * 4, "dq": (128 * 257 + 32 * 33) * 4}
+        "dkdv": ((2 * 64 + 2 * 32) * 260 + 2 * 32 + 64 * 32) * 4,
+        "dq": (2 * 64 + 2 * 32) * 260 * 4}
     for dtype in (torch.float32, torch.bfloat16):
         assert max(max(fa_ops.bwd_smem_bytes(dh, dtype=dtype).values())
                    for dh in range(1, 257)) <= 232_448

@@ -36,6 +36,8 @@ from repro_torch.kernels.ssd_scan import ops
 from repro_torch.kernels.ssd_scan.ref import span_states_ref, ssd_bwd_ref, ssd_ref
 from repro_torch.models.ssm import ssd_chunked, ssd_recurrent
 
+from _tf32 import tf32_mm as _tf32_mm
+
 TOL = 2e-4
 # (b, s, h, p, n, chunk): tests/test_kernels.py's, S below the chunk, and
 # Mamba2-130M's P and N at a short S
@@ -150,22 +152,6 @@ def test_wrapper_checks_what_the_kernel_takes():
         ops.ssd_scan(*(t.to("meta") for t in (x, dt, A, Bm, Cm)), chunk=16)
     with pytest.raises(ValueError, match="empty"):
         ops.ssd_scan(x[:, :0], dt[:, :0], A, Bm[:, :0], Cm[:, :0], chunk=16)
-
-
-def _tf32_cut(t):
-    """float32 ``t`` with its 13 low mantissa bits cleared: TF32 by truncation."""
-    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_mm(a, b, split):
-    """``a @ b`` as K4's tensor-core products compute it: each operand cut to
-    TF32 (hi), and with ``split`` the rest of it (lo = v - hi, which the
-    tensor core cuts to TF32 as well) in two more products, the small terms
-    a_lo b_hi + a_hi b_lo summed apart before they join a_hi b_hi; f32 sums."""
-    ah, bh = _tf32_cut(a), _tf32_cut(b)
-    if not split:
-        return ah @ bh
-    return ah @ bh + (_tf32_cut(a - ah) @ bh + ah @ _tf32_cut(b - bh))
 
 
 def _kernel_arithmetic(x, dt, A, Bm, Cm, h0, split):
