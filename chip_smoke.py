@@ -9,6 +9,9 @@ Phases, each printing JSON lines on standard output:
   torch and CUDA versions;
 * ``build``  — ``nvcc`` builds every CUDA source of the port for ``sm_90a``
   and reports each kernel's registers, shared memory and spills;
+* ``lint`` — the port's simlint (``repro_torch.analysis``) over this
+  checkout, in an interpreter that loads neither jax, the JAX package nor
+  torch: 0 findings, with files scanned, pragmas and seconds;
 * ``kernel`` — kernels K1 (``pairwise_sq_dists``) and K2 (``assign``) held
   against their plain versions at the Mini-App's shapes and a ragged one,
   with CUDA-event times beside the bound (and its share), K1's write rate,
@@ -26,6 +29,12 @@ Phases, each printing JSON lines on standard output:
 * ``stream-rate`` — the stream at 1,024 centroids, open loop: appends paced
   by the port's ``ConstantRate`` at half the msgs/s that ``stream`` read,
   with L^px and the broker's lag (the latency at a sustainable rate);
+* ``lockwatch`` — the port's lock-order shim (``repro_torch.analysis.
+  LockWatch``) installed, then the stream at 1,024 centroids, 50 messages,
+  on ``torch://`` and on ``local://`` (units on the pilot's thread pool, K2
+  on the card): the acquisition graph has lock traffic, no cycle and no
+  cross-component wait, and holds each lock site the port's manifest
+  registers; the shim comes off before the next phase;
 * ``sim-cells`` — the simulated Mini-App (``repro_torch.core.miniapp``) on
   the grid of ``benchmarks/fig5_throughput.py``: serverless and wrangler,
   1-16 partitions, 1,024 and 8,192 centroids, 40 messages each, on the
@@ -205,6 +214,10 @@ N_MESSAGES, PARTITIONS = 200, 4       # paper messages and partitions per cell
 PARITY_STEPS = 24
 SPIN_MS_PER_CALL, SPIN_HZ = 0.2, 1.98e9      # cuda_ms's head start for the host; H100 SXM boost clock
 PROFILE_MESSAGES = 50
+# lockwatch: the stream at 1,024 centroids, 50 messages, on each pilot
+# (torch:// runs units inline, local:// on its thread pool), under the
+# port's lock-order shim
+LOCKWATCH_MESSAGES, LOCKWATCH_RESOURCES = 50, ("torch://", "local://")
 # the fig5 grid (benchmarks/fig5_throughput.py), and the card-carrying cells
 SIM_GRID = [dict(machine=m, partitions=n, points=N_POINTS, centroids=c, n_messages=40,
                  seed=3) for m in ("serverless", "wrangler") for c in MODEL_SIZES
@@ -847,9 +860,13 @@ def phase_parity(torch) -> dict:
 
 
 def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES,
-                 phase: str = "stream", rate_hz: float | None = None) -> dict:
+                 phase: str = "stream", rate_hz: float | None = None,
+                 resource: str = "torch://") -> dict:
     """The Mini-App stream at ``n_centroids``: every message appended at once,
-    or, with ``rate_hz``, open loop at the port's ``ConstantRate(rate_hz)``."""
+    or, with ``rate_hz``, open loop at the port's ``ConstantRate(rate_hz)``.
+    ``resource`` is ``torch://`` (units run inline on the card's pilot) or
+    ``local://`` (units run on the pilot's thread pool, one a partition, and
+    put their points on the card themselves)."""
     from repro_torch.core.metrics import MetricRegistry, new_run_id, percentile_summary
     from repro_torch.kernels.kmeans_distance import ops
     from repro_torch.models import kmeans
@@ -861,13 +878,17 @@ def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES
     data = clustered(np.random.default_rng([SEED, 2, n_centroids]), n_messages)
     program = ConstantRate(rate_hz) if rate_hz else None
     pcs = PilotComputeService()
-    pilot = pcs.submit_pilot(PilotDescription(resource="torch://",
-                                              attrs={"device": DEVICE}))
+    if resource == "torch://":
+        pilot = pcs.submit_pilot(PilotDescription(resource=resource, attrs={"device": DEVICE}))
+        device = pilot.device
+    else:
+        pilot = pcs.submit_pilot(PilotDescription(resource=resource, partitions=PARTITIONS,
+                                                  concurrency=PARTITIONS))
+        device = torch.device(DEVICE)
     broker = Broker()
     broker.create_topic("points", PARTITIONS)
-    gen = torch.Generator(device=pilot.device).manual_seed(SEED)
-    state = kmeans.init_state(n_centroids, DIM, generator=gen, device=pilot.device,
-                              scale=3.0)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    state = kmeans.init_state(n_centroids, DIM, generator=gen, device=device, scale=3.0)
     # inertia of each message under the model before its update (the model's
     # quality on data it has not seen): falls as the stream is learned
     pre_inertia = []
@@ -876,7 +897,7 @@ def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES
     def process(msgs):
         nonlocal state
         for m in msgs:
-            pts = torch.from_numpy(m.value).to(pilot.device)
+            pts = torch.from_numpy(m.value).to(device)
             with model_lock:
                 pre_inertia.append(kmeans.inertia(pts, state.centroids))
                 state = kmeans.minibatch_step(state, pts)
@@ -913,8 +934,8 @@ def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES
     inertia = torch.stack(pre_inertia).cpu().numpy()
     centroids, counts = kmeans.state_to_numpy(state)
     lat = percentile_summary(metrics.latencies(run_id, "append", "complete"))
-    out = {"phase": phase, "centroids": n_centroids, "points": N_POINTS, "dim": DIM,
-           "partitions": PARTITIONS, "batch_max": 1,
+    out = {"phase": phase, "resource": resource, "centroids": n_centroids,
+           "points": N_POINTS, "dim": DIM, "partitions": PARTITIONS, "batch_max": 1,
            "processed": engine.core.processed, "expected": n_messages,
            "abandoned": engine.core.abandoned, "retried": engine.core.retried,
            "wall_s": wall, "msgs_per_s": metrics.throughput(run_id, "complete"),
@@ -944,6 +965,95 @@ def phase_stream(torch, n_centroids: int, smi: str, n_messages: int = N_MESSAGES
         problems.append(f"pairwise_sq_dists launched {launches['pairwise_sq_dists']} times")
     if problems:
         raise AssertionError(f"{phase} at {n_centroids} centroids: {problems}")
+    return out
+
+
+LINT_RUN = """
+import json, sys, time
+t0 = time.perf_counter()
+from repro_torch.analysis import run_analysis
+report = run_analysis(sys.argv[1])
+seconds = time.perf_counter() - t0
+loaded = sorted({m.split(".")[0] for m in sys.modules} & {"torch", "jax", "jaxlib", "repro"})
+print(json.dumps({"findings": [f.render() for f in sorted(report.findings)],
+                  "files_scanned": report.files_scanned,
+                  "pragma_count": report.pragma_count, "seconds": seconds,
+                  "loaded": loaded}))
+"""
+
+
+def phase_lint(smi: str) -> dict:
+    """The port's simlint (``repro_torch.analysis``) over this checkout, in a
+    fresh interpreter that must load neither jax, the JAX package nor torch:
+    0 findings."""
+    proc = subprocess.run([sys.executable, "-c", LINT_RUN, str(ROOT)], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if proc.returncode != 0:
+        raise RuntimeError(f"lint: exit {proc.returncode}: {proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = {"phase": "lint", "findings": len(res["findings"]),
+           "files_scanned": res["files_scanned"], "pragma_count": res["pragma_count"],
+           "seconds": res["seconds"], "modules_loaded": res["loaded"], "card": smi}
+    emit(out)
+    problems = res["findings"][:20]
+    if res["loaded"]:
+        problems.append(f"the analysis loaded {res['loaded']}")
+    if res["files_scanned"] <= 100:
+        problems.append(f"only {res['files_scanned']} files scanned")
+    if problems:
+        raise AssertionError(f"lint: {problems}")
+    return out
+
+
+def phase_lockwatch(torch, smi: str) -> dict:
+    """The threaded Mini-App on the card under the port's lock-order shim
+    (``repro_torch.analysis.LockWatch``), installed before any of the
+    phase's engines, pilots or brokers exists: the stream on each of
+    LOCKWATCH_RESOURCES, K2 on the card.  The acquisition graph must have
+    lock traffic, no cycle and no cross-component wait, and every lock site
+    the port's manifest registers (found statically) must be a node."""
+    from repro_torch.analysis import DEFAULT_MANIFEST, LockWatch, analyze_file
+    from repro_torch.analysis.locks import extract_lock_sites
+
+    registered = []
+    for site in DEFAULT_MANIFEST.known_locks:
+        rel = "src/" + site.path.removeprefix("*/")
+        ctx = analyze_file(str(ROOT / rel), rel, DEFAULT_MANIFEST)
+        registered += [f"{rel}:{line}:" for _kind, qualname, line in extract_lock_sites(ctx)
+                       if site.matches(rel, qualname)]
+    t0 = time.perf_counter()
+    watch = LockWatch().install()
+    try:
+        runs = [phase_stream(torch, MODEL_SIZES[0], smi, LOCKWATCH_MESSAGES,
+                             f"lockwatch-{res.removesuffix('://')}", resource=res)
+                for res in LOCKWATCH_RESOURCES]
+    finally:
+        watch.uninstall()
+    seconds = time.perf_counter() - t0
+    report = watch.report()
+    seen = {want: any(s.startswith(want) for s in report["sites"]) for want in registered}
+    out = {"phase": "lockwatch", "resources": list(LOCKWATCH_RESOURCES),
+           "messages": LOCKWATCH_MESSAGES, "acquisitions": report["acquisitions"],
+           "nodes": len(report["sites"]),
+           "edges": sum(len(b) for b in report["edges"].values()),
+           "cycles": report["cycles"], "cross_component_waits": report["cross_component_waits"],
+           "waits_while_holding": len(report["waits_while_holding"]),
+           "registered_sites_seen": seen,
+           "assign_launches": [r["launches"]["assign"] for r in runs],
+           "seconds": seconds, "card": smi}
+    emit(out)
+    problems = []
+    if report["acquisitions"] <= 0:
+        problems.append("the shim saw no lock traffic")
+    if report["cycles"]:
+        problems.append(f"cycles {report['cycles']}")
+    if report["cross_component_waits"]:
+        problems.append(f"cross-component waits {report['cross_component_waits']}")
+    if len(registered) != len(DEFAULT_MANIFEST.known_locks) or not all(seen.values()):
+        problems.append(f"registered lock sites {registered}, seen {seen}")
+    if problems:
+        raise AssertionError(f"lockwatch: {problems}")
     return out
 
 
@@ -2827,15 +2937,17 @@ def main() -> int:
         return 1
     if run("build", phase_build, torch) is None:
         return 1
+    smi = device["nvidia_smi"]
+    run("lint", phase_lint, smi)
     kernels = run("kernel", phase_kernels, torch)
     run("parity", phase_parity, torch)
     streams = {k: run(f"stream-{k}", phase_stream, torch, k, device["nvidia_smi"])
                for k in MODEL_SIZES}
-    run("profile", phase_profile, torch, device["nvidia_smi"])
-    smi = device["nvidia_smi"]
+    run("profile", phase_profile, torch, smi)
     if streams[MODEL_SIZES[0]] is not None:
         run("stream-rate", phase_stream, torch, MODEL_SIZES[0], smi, N_MESSAGES,
             "stream-rate", streams[MODEL_SIZES[0]]["msgs_per_s"] / 2)
+    run("lockwatch", phase_lockwatch, torch, smi)
     run("sim-cells", phase_sim_cells, smi)
     sim_kmeans = [run(f"sim-kmeans-{machine}{'-faults' if faults else ''}", phase_sim_kmeans,
                       torch, smi, machine, faults) for machine, faults in SIM_KMEANS_CELLS]

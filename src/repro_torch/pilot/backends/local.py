@@ -32,7 +32,7 @@ class LocalBackend(Backend):
     def __init__(self, **_kw) -> None:
         self._pools: dict[int, ThreadPoolExecutor] = {}
         self._caps: dict[int, dict] = {}   # uid -> {capacity, running, ceiling}
-        self._cv = threading.Condition()  # simlint: allow[lock-site] — admission gate: many pool threads wait for a slot that scale_to/preempt/restore/finish move; leaf, no call out under it; the manifest's known_locks cover only the reference package
+        self._cv = threading.Condition()  # simlint: allow[lock-site] — admission gate: many pool threads wait for a slot that scale_to/preempt/restore/finish move; leaf, no call out under it; kept for the reference gate; the port's manifest registers it
 
     def start_pilot(self, pilot: Pilot) -> None:
         workers = pilot.desc.concurrency or (

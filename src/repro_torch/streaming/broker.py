@@ -55,7 +55,7 @@ class Broker:
         self._commits: dict[tuple[str, str, int], int] = {}  # (group, topic, part) -> next offset
         self._rr: dict[str, int] = {}
         self._subs: dict[str, list[Callable[[Message], None]]] = {}
-        self._lock = threading.RLock()  # simlint: allow[lock-site] — broker state (topics/commits/counters); leaf, subscribers run outside it; the manifest's known_locks cover only the reference package
+        self._lock = threading.RLock()  # simlint: allow[lock-site] — broker state (topics/commits/counters); leaf, subscribers run outside it; kept for the reference gate; the port's manifest registers it
         # maintained incrementally so lag() is O(1)
         self._appended_total: dict[str, int] = {}
         self._committed_total: dict[tuple[str, str], int] = {}
