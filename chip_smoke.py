@@ -153,23 +153,42 @@ Phases, each printing JSON lines on standard output:
   Mamba2-130M cut to 2 layers, float32, 2 x 256 tokens: the loss and every
   gradient leaf on the card (K3 or K4 and their backward kernels) against
   the CPU;
+
+every training phase runs the configs' registered remat (``cfg.remat``
+``"full"``: each ``block_pattern`` group's forward is recomputed in the
+backward, so a kernel in a checkpointed layer launches its forward twice a
+microbatch and its backward once; ``forward_launches``);
+
 * ``train-qwen2`` and ``train-mamba2`` — ``launch.train`` on full-width
   Qwen2-0.5B and Mamba2-130M (24 layers each, bf16, 8 x 1,024 tokens a
   step in 2 microbatches): 30 steps with a checkpoint at 20, then a restart
   from it that redoes steps 20-29; the loss falls, the restart is
-  bit-exact, K3 (K4) forward and backward launch 48 times a step; ms a
-  step, tok/s, peak allocated bytes, and one profiled step's device time
-  by family (the kernel's forward and backward, GEMMs, the rest);
-* ``arch-train`` — one step at published width, 2 layers, of
-  Granite-3.0-3B-A800M, InternVL2-1B (with patch embeddings) and
-  Mamba2-130M (K4 and its backward once a layer), and 5 of
-  RecurrentGemma-2B (its first local-attention layer, K3 and its backward
-  at Dh 256);
+  bit-exact, K3 (K4) forward launches 96 times a step and its backward 48;
+  ms a step, tok/s, peak allocated bytes; then, from the trained weights,
+  a profiled step under ``none`` and one under ``full`` (after an
+  unprofiled ``none`` step that grows the allocator's pool): each one's
+  wall ms, device ms by family (the kernel's forward and backward, GEMMs,
+  the rest) and the host's top ops;
 * ``train-recurrentgemma`` — ``launch.train`` on RecurrentGemma-2B at full
   width and depth (26 layers, bf16, 4 x 1,024 tokens a step in 2
-  microbatches, 8 steps): the loss falls, K3 forward and backward launch
-  16 times a step, every backward on the TMA route; ms a step, tok/s, peak
-  allocated bytes;
+  microbatches, 8 steps): the loss falls, K3 forward launches 32 times a
+  step and its backward 16, every backward on the TMA route; ms a step,
+  tok/s, peak allocated bytes;
+* ``train-remat`` — one step of 4 x 1,024 tokens in 2 microbatches at
+  published width, bf16, from the same weights and batch under each of
+  ``cfg.remat`` ``none``, ``dots`` and ``full``: Granite-3.0-3B-A800M and
+  Mamba2-130M at 4 layers, RecurrentGemma-2B at 5 (one group and the
+  unwrapped tail), Qwen2.5-3B, InternVL2-1B and MusicGen-Medium at 2; the
+  loss, every updated parameter and both moments ``torch.equal`` across
+  the three, K3's and K4's launches as the policy gives them, the step's
+  peak allocated bytes under each and the activation bytes a layer;
+* ``train-full-depth`` — ``launch.train`` at published width and depth
+  under ``full``, 8 steps of 4 x 1,024 tokens in 2 microbatches:
+  Granite-3.0-3B-A800M (32 layers), Qwen2.5-3B (36, K3 at Dh 128),
+  InternVL2-1B (24, 256 patch embeddings) and MusicGen-Medium (48, 256
+  frame embeddings); the first loss near log V, the loss falling, finite
+  nonzero gradient norms, K3's launches, the peak under 80 GB, tok/s, ms a
+  step, and the estimated peak under ``none`` (never run);
 
 then each phase's seconds, the ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` line, and last
@@ -417,12 +436,28 @@ TRAIN_STEPS, TRAIN_CKPT = 30, 20
 # against CPU within tests/test_torch_training.py's gradient tolerance
 # (each leaf max|d| <= 1e-4 max|g_cpu| + 1e-6) and its loss rtol 1e-5
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 256
-# arch-train: one step at published width, 4 x 1,024 tokens, 2 layers, or 5
-# of RecurrentGemma-2B (rglru, rglru, local_attn, and the 2-layer rglru
-# tail: its first 2 would run no attention); Mamba2-130M's 2 through K4 and
-# its backward
-TRAIN_ARCHS = {MOE_ARCH: ARCH_LAYERS, "internvl2-1b": ARCH_LAYERS, HYBRID_ARCH: 5,
-               SSM_ARCH: ARCH_LAYERS}
+# train-remat: one make_train_step step at published width, bf16, seed 0, 4 x
+# 1,024 tokens in 2 microbatches, from the same parameters and batch under
+# each policy of cfg.remat: Granite (MoE and K3) and Mamba2-130M (K4) at 4
+# layers, RecurrentGemma-2B at 5 (one rglru, rglru, local_attn group and the
+# unwrapped 2-layer rglru tail), and the other configs train-full-depth
+# trains at 2 layers (their activation bytes a layer, for the estimate of
+# their full-depth peak under "none", which is never run)
+REMAT_POLICIES = ("none", "dots", "full")
+REMAT_ARCHS = {MOE_ARCH: 4, SSM_ARCH: 4, HYBRID_ARCH: 5, "qwen2.5-3b": 2,
+               "internvl2-1b": 2, MUSICGEN_ARCH: 2}
+REMAT_BATCH, REMAT_SEQ, REMAT_MICRO = 4, 1_024, 2
+# train-full-depth: launch.train at published width and depth, bf16, seed
+# 0, under the registered remat ("full"), 4 x 1,024 tokens a step in 2
+# microbatches, no checkpoint (a 3B model's is ~31 GB of disk)
+FULL_DEPTH_ARCHS = (MOE_ARCH, "qwen2.5-3b", "internvl2-1b", MUSICGEN_ARCH)
+FULL_DEPTH_BATCH, FULL_DEPTH_SEQ, FULL_DEPTH_MICRO, FULL_DEPTH_STEPS = 4, 1_024, 2, 8
+# their learning rate: the order of the published pretraining peak rates of
+# 1-3B models; at launch.train's default 3e-3 (sized for the reduced
+# configs, one warmup step at 8 steps) these widths' losses swing from step
+# to step, and MusicGen-Medium's did not fall in 8
+FULL_DEPTH_LR = 3e-4
+CARD_BYTES = 80e9                                 # the H100's device memory
 # train-recurrentgemma: full width and depth, bf16, 4 x 1,024 tokens a step
 # in 2 microbatches, 8 steps
 TRAIN_RG_BATCH, TRAIN_RG_SEQ, TRAIN_RG_MICRO, TRAIN_RG_STEPS = 4, 1_024, 2, 8
@@ -1794,10 +1829,29 @@ def fa_prefill_shape(cfg) -> tuple[int, int, int, int, int]:
             cfg.head_dim, window)
 
 
+KERNEL_KINDS = {"flash_attention": ("attn", "local_attn", "moe"), "ssd_scan": ("ssm",)}
+
+
 def kernel_layers(cfg, kernel: str) -> int:
     """Layers of ``cfg`` whose prefill launches ``kernel`` once."""
-    kinds = {"flash_attention": ("attn", "local_attn", "moe"), "ssd_scan": ("ssm",)}[kernel]
-    return sum(kind in kinds for kind in cfg.layer_kinds)
+    return sum(kind in KERNEL_KINDS[kernel] for kind in cfg.layer_kinds)
+
+
+def wrapped_layers(cfg, kernel: str | None = None) -> int:
+    """Layers of ``cfg`` in its ``block_pattern`` groups, which training
+    checkpoints unless ``cfg.remat`` is ``"none"`` (the tail runs
+    unwrapped); with ``kernel``, only those that launch it."""
+    body = cfg.layer_kinds[:cfg.n_groups * len(cfg.block_pattern)]
+    return sum(kernel is None or kind in KERNEL_KINDS[kernel] for kind in body)
+
+
+def forward_launches(cfg, kernel: str) -> int:
+    """``kernel``'s forward launches in one microbatch of a training step:
+    once a layer that runs it, and once more in a checkpointed layer, whose
+    forward the backward recomputes (``cfg.remat`` other than ``"none"``).
+    The backward launches once a layer."""
+    again = 0 if cfg.remat == "none" else wrapped_layers(cfg, kernel)
+    return kernel_layers(cfg, kernel) + again
 
 
 def fa_shapes() -> list[tuple]:
@@ -2611,8 +2665,9 @@ def phase_train_parity(torch, smi: str, arch: str = TRAIN_ARCH, kernel: str = "f
     TRAIN_PARITY_LAYERS layers, float32, one SyntheticLM batch: on the card
     (``kernel`` and its backward kernels) against the same weights on the
     CPU (the plain versions), the loss within rtol 1e-5 and every gradient
-    leaf within 1e-4 of its largest entry + 1e-6; ``kernel`` forward and
-    backward once a layer that runs it."""
+    leaf within 1e-4 of its largest entry + 1e-6; ``kernel`` backward once
+    a layer that runs it and its forward as ``forward_launches`` counts it
+    (twice in a layer of a checkpointed group: the registered remat)."""
     import copy
 
     from repro_torch.configs.base import get_config
@@ -2639,7 +2694,7 @@ def phase_train_parity(torch, smi: str, arch: str = TRAIN_ARCH, kernel: str = "f
     worst = {n: float((g - w).abs().max()) / (1e-4 * float(w.abs().max()) + 1e-6)
              for n, g, w in zip(names, out["card"][1], out["cpu"][1])}
     loss_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    row = {"phase": phase, "arch": arch, "dtype": "float32",
+    row = {"phase": phase, "arch": arch, "dtype": "float32", "remat": cfg.remat,
            "layers": cfg.n_layers, "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
            "loss_card": out["card"][0], "loss_cpu": out["cpu"][0], "loss_rel_err": loss_rel,
            "leaves": len(names), "worst_leaf_to_tolerance": max(worst.values()),
@@ -2648,7 +2703,7 @@ def phase_train_parity(torch, smi: str, arch: str = TRAIN_ARCH, kernel: str = "f
     emit(row)
     n = kernel_layers(cfg, kernel)
     if not (loss_rel <= 1e-5 and max(worst.values()) <= 1.0 and n >= 1
-            and counts == {kernel: n, f"{kernel}_bwd": n}):
+            and counts == {kernel: forward_launches(cfg, kernel), f"{kernel}_bwd": n}):
         raise AssertionError(f"{phase}: {row}")
     return row
 
@@ -2714,11 +2769,13 @@ def phase_train_lm(torch, smi: str, arch: str = TRAIN_ARCH, kernel: str = "flash
     the end); then a second run from a directory holding only that
     checkpoint, which resumes there and redoes the steps after it.  The loss
     must fall (the mean of the last 5 below the first), the restart must be
-    bit-exact (losses, parameters and moments), and ``kernel`` forward and
-    backward must each launch once a layer that runs it and microbatch a
-    step run (K3's forward writing lse, every backward on TMA's route; K4's
-    forward keeping its span states); counts set to 0 just before the first
-    run and read just after the second."""
+    bit-exact (losses, parameters and moments), and ``kernel`` backward
+    must launch once a layer that runs it and microbatch a step run, its
+    forward ``forward_launches`` times a microbatch (twice a layer under the
+    registered remat ``"full"``: the backward recomputes each layer) with
+    every forward launch writing lse (K3; every backward on TMA's route) or
+    keeping its span states (K4); counts set to 0 just before the first run
+    and read just after the second."""
     import shutil
 
     from repro_torch.configs.base import get_config
@@ -2752,8 +2809,9 @@ def phase_train_lm(torch, smi: str, arch: str = TRAIN_ARCH, kernel: str = "flash
                        for n in first.opt_state.mu)
     steps_run = (TRAIN_STEPS - first.start) + (TRAIN_STEPS - second.start)
     want = kernel_layers(cfg, kernel) * TRAIN_MICRO * steps_run
+    want_fwd = forward_launches(cfg, kernel) * TRAIN_MICRO * steps_run
     step_ms = sorted(x * 1e3 for x in first.step_s[1:])          # the first step warms up
-    row = {"phase": phase, "arch": arch, "dtype": cfg.dtype,
+    row = {"phase": phase, "arch": arch, "dtype": cfg.dtype, "remat": cfg.remat,
            "layers": cfg.n_layers, "params": sum(p.numel() for p in first.params.parameters()),
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
            "steps": TRAIN_STEPS, "checkpoint_step": TRAIN_CKPT, "restart_from": second.start,
@@ -2771,13 +2829,19 @@ def phase_train_lm(torch, smi: str, arch: str = TRAIN_ARCH, kernel: str = "flash
            "card": smi}
     emit(row)
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.training.train_loop import batch_to
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import batch_to, make_train_step
 
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
-    emit({"phase": f"{phase}-profile", "arch": arch, "step": TRAIN_STEPS,
-          **train_step_profile(torch, cfg, second.params, second.opt_state,
-                               batch_to(data.batch_at(TRAIN_STEPS), DEVICE), kernel),
-          "card": smi})
+    batch = batch_to(data.batch_at(TRAIN_STEPS), DEVICE)
+    # what the remat costs a step, on the host and on the device
+    make_train_step(dataclasses.replace(cfg, remat="none"), OptimizerConfig(), TRAIN_MICRO)(
+        second.params, second.opt_state, batch)
+    for policy in ("none", cfg.remat):
+        emit({"phase": f"{phase}-profile", "arch": arch, "step": TRAIN_STEPS, "remat": policy,
+              **train_step_profile(torch, dataclasses.replace(cfg, remat=policy),
+                                   second.params, second.opt_state, batch, kernel),
+              "card": smi})
     del first, second
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2787,9 +2851,9 @@ def phase_train_lm(torch, smi: str, arch: str = TRAIN_ARCH, kernel: str = "flash
     if not all(row["restart_bit_exact"].values()):
         problems.append(f"restart not bit-exact: {row['restart_bit_exact']}")
     kept = lse_writes if kernel == "flash_attention" else states_kept
-    if want < 1 or counts != {kernel: want, f"{kernel}_bwd": want} or kept != want:
+    if want < 1 or counts != {kernel: want_fwd, f"{kernel}_bwd": want} or kept != want_fwd:
         problems.append(f"{kernel} launches {counts}, forwards keeping what the backward "
-                        f"reads {kept}, want {want} each")
+                        f"reads {kept}, want {want_fwd} forward (and kept), {want} backward")
     if routes != ({"tma": want, "copy": 0, "f32": 0} if kernel == "flash_attention"
                   else {"tma": 0, "copy": 0, "f32": 0}):
         problems.append(f"K3 backward routes {routes}")
@@ -2803,9 +2867,11 @@ def phase_train_recurrentgemma(torch, smi: str) -> dict:
     (26 layers, 8 of them local attention at Dh 256; bf16, random weights
     from SEED): TRAIN_RG_STEPS steps of TRAIN_RG_BATCH x TRAIN_RG_SEQ tokens
     in TRAIN_RG_MICRO microbatches, no checkpoint.  The loss must fall (the
-    mean of the last 3 below the first), and K3 forward (writing lse) and
-    backward must each launch once per attention layer and microbatch a
-    step, every backward on the TMA route; counts set to 0 just before the
+    mean of the last 3 below the first), and K3 backward must launch once
+    per attention layer and microbatch a step, every backward on the TMA
+    route, and its forward (writing lse) ``forward_launches`` times a
+    microbatch (its 8 attention layers are all in checkpointed groups, so
+    twice each under the registered remat); counts set to 0 just before the
     run and read just after."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -2823,8 +2889,10 @@ def phase_train_recurrentgemma(torch, smi: str) -> dict:
     routes = dict(fa_ops.BWD_ROUTES)
     lse_writes = fa_ops.LSE_WRITES["flash_attention"]
     want = attn * TRAIN_RG_MICRO * TRAIN_RG_STEPS
+    want_fwd = forward_launches(cfg, "flash_attention") * TRAIN_RG_MICRO * TRAIN_RG_STEPS
     step_ms = sorted(x * 1e3 for x in res.step_s[1:])           # the first step warms up
     row = {"phase": "train-recurrentgemma", "arch": HYBRID_ARCH, "dtype": cfg.dtype,
+           "remat": cfg.remat,
            "layers": cfg.n_layers, "attention_layers": attn,
            "params": sum(p.numel() for p in res.params.parameters()),
            "batch": TRAIN_RG_BATCH, "seq": TRAIN_RG_SEQ, "microbatches": TRAIN_RG_MICRO,
@@ -2840,8 +2908,10 @@ def phase_train_recurrentgemma(torch, smi: str) -> dict:
     problems = []
     if not np.mean(row["losses"][-3:]) < row["losses"][0]:
         problems.append("the loss did not fall")
-    if counts != {"flash_attention": want, "flash_attention_bwd": want} or lse_writes != want:
-        problems.append(f"K3 launches {counts}, lse writes {lse_writes}, want {want} each")
+    if (counts != {"flash_attention": want_fwd, "flash_attention_bwd": want}
+            or lse_writes != want_fwd):
+        problems.append(f"K3 launches {counts}, lse writes {lse_writes}, want {want_fwd} "
+                        f"forward (and lse), {want} backward")
     if routes != {"tma": want, "copy": 0, "f32": 0}:
         problems.append(f"backward routes {routes}, want {want} on TMA's")
     if problems:
@@ -2849,59 +2919,187 @@ def phase_train_recurrentgemma(torch, smi: str) -> dict:
     return row
 
 
-def phase_arch_train(torch, smi: str) -> dict:
-    """One training step at published width, cut to TRAIN_ARCHS' layers,
-    bf16, of each of them (Granite's MoE gradients; InternVL2's patch
-    embeddings and prefix mask; RecurrentGemma-2B's local attention at Dh
-    256 with its RG-LRU layers; Mamba2-130M's SSD), 4 x 1,024 tokens: a
-    finite loss near log V, a finite nonzero gradient norm, K3 forward and
-    backward once an attention layer (every backward on the TMA route) and
-    K4 forward and backward once a Mamba-2 layer."""
+def phase_train_remat(torch, smi: str) -> dict:
+    """One ``make_train_step`` step of each REMAT_ARCHS config at published
+    width cut to its layers (bf16, weights from SEED, REMAT_BATCH x
+    REMAT_SEQ tokens in REMAT_MICRO microbatches, AdamW), from the same
+    parameters and batch under each of REMAT_POLICIES: the loss, every
+    updated parameter and both moments ``torch.equal`` across the policies;
+    K3's and K4's backward once a layer that runs it and microbatch, their
+    forward ``forward_launches`` times a microbatch under each policy (each
+    forward launch writing lse or keeping its span states, every K3
+    backward on the TMA route); the step's peak allocated bytes under each
+    policy, above what was allocated when it began (``step_bytes``), lower
+    under ``full`` than under ``none``; and the activation bytes a layer,
+    (step_bytes under ``none`` - under ``full``) / the checkpointed
+    layers."""
+    import copy
+
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_loop import batch_to, make_train_step
 
+    names = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
     rows, problems = {}, []
-    for arch, layers in TRAIN_ARCHS.items():
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-        params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
-        params.requires_grad_(True)
-        data = SyntheticLM(cfg.vocab_size, SERVE_PROMPT, SERVE_BATCH, seed=SEED,
-                           n_prefix=cfg.n_prefix if cfg.frontend else 0,
-                           d_model=cfg.d_model if cfg.frontend else 0)
+    for arch, layers in REMAT_ARCHS.items():
+        base = dataclasses.replace(get_config(arch), n_layers=layers)
+        pristine = M.init_params(base, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+        data = SyntheticLM(base.vocab_size, REMAT_SEQ, REMAT_BATCH, seed=SEED,
+                           n_prefix=base.n_prefix if base.frontend else 0,
+                           d_model=base.d_model if base.frontend else 0)
         batch = batch_to(data.batch_at(0), DEVICE)
-        step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1))
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, _, metrics = step(params, init_opt_state(params), batch)
-        loss = float(metrics["loss"])
-        ms = (time.perf_counter() - t0) * 1e3
-        names = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
-        counts = {k: launches(k) for k in names}
-        routes = dict(fa_ops.BWD_ROUTES)
-        gnorm = float(metrics["grad_norm"])
-        row = {"phase": "arch-train", "arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
-               "params": sum(p.numel() for p in params.parameters()),
-               "batch": SERVE_BATCH, "seq": SERVE_PROMPT,
-               "prefix_embeds": cfg.n_prefix if cfg.frontend else 0,
-               "loss": loss, "log_vocab": float(np.log(cfg.vocab_size)), "grad_norm": gnorm,
-               "step_ms": ms, "launches": counts, "bwd_routes": routes, "card": smi}
+        done, policies = {}, {}
+        for policy in REMAT_POLICIES:
+            cfg = dataclasses.replace(base, remat=policy)
+            params = copy.deepcopy(pristine).requires_grad_(True)
+            state = init_opt_state(params)
+            step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1), REMAT_MICRO)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            done[policy] = (metrics["loss"], dict(params.named_parameters()), state)
+            policies[policy] = {
+                "loss": loss, "grad_norm": float(metrics["grad_norm"]), "step_ms": ms,
+                "peak_allocated_bytes": peak, "step_bytes": peak - before,
+                "launches": {k: launches(k) for k in names},
+                "lse_writes": fa_ops.LSE_WRITES["flash_attention"],
+                "ssd_states_kept": ssd_ops.STATES_KEPT["ssd_scan"],
+                "bwd_routes": dict(fa_ops.BWD_ROUTES)}
+            del params, state, metrics, step
+        loss0, params0, state0 = done["none"]
+        bit_equal = {policy: {
+            "loss": bool(torch.equal(done[policy][0], loss0)),
+            "params": all(torch.equal(done[policy][1][n], t) for n, t in params0.items()),
+            "moments": all(torch.equal(done[policy][2].mu[n], state0.mu[n])
+                           and torch.equal(done[policy][2].nu[n], state0.nu[n])
+                           for n in params0)} for policy in REMAT_POLICIES if policy != "none"}
+        wrapped = wrapped_layers(base)
+        row = {"phase": "train-remat", "arch": arch, "dtype": base.dtype, "layers": layers,
+               "wrapped_layers": wrapped, "group": len(base.block_pattern),
+               "params": sum(p.numel() for p in pristine.parameters()),
+               "batch": REMAT_BATCH, "seq": REMAT_SEQ, "microbatches": REMAT_MICRO,
+               "policies": policies, "bit_equal_to_none": bit_equal,
+               "activation_bytes_per_layer": (policies["none"]["step_bytes"]
+                                              - policies["full"]["step_bytes"]) / wrapped,
+               "card": smi}
         emit(row)
         rows[arch] = row
-        attn, ssm = kernel_layers(cfg, "flash_attention"), kernel_layers(cfg, "ssd_scan")
-        if not (np.isfinite(loss) and 0.1 * row["log_vocab"] < loss < 3 * row["log_vocab"]
-                and np.isfinite(gnorm) and gnorm > 0 and attn + ssm >= 1
-                and counts == dict(zip(names, (attn, attn, ssm, ssm)))
-                and routes == {"tma": attn, "copy": 0, "f32": 0}):
-            problems.append(arch)
-        del params, batch, metrics
+        for policy, got in policies.items():
+            cfg = dataclasses.replace(base, remat=policy)
+            attn, ssm = kernel_layers(cfg, "flash_attention"), kernel_layers(cfg, "ssd_scan")
+            fa_fwd = forward_launches(cfg, "flash_attention") * REMAT_MICRO
+            ssd_fwd = forward_launches(cfg, "ssd_scan") * REMAT_MICRO
+            want = dict(zip(names, (fa_fwd, attn * REMAT_MICRO, ssd_fwd, ssm * REMAT_MICRO)))
+            if not (np.isfinite(got["loss"]) and attn + ssm >= 1 and got["launches"] == want
+                    and got["lse_writes"] == fa_fwd and got["ssd_states_kept"] == ssd_fwd
+                    and got["bwd_routes"] == {"tma": attn * REMAT_MICRO, "copy": 0, "f32": 0}):
+                problems.append(f"{arch} under {policy}: launches {got['launches']}, lse "
+                                f"{got['lse_writes']}, states {got['ssd_states_kept']}, routes "
+                                f"{got['bwd_routes']}, want {want}")
+        if not all(all(v.values()) for v in bit_equal.values()):
+            problems.append(f"{arch}: not bit-equal across the policies: {bit_equal}")
+        if not policies["full"]["step_bytes"] < policies["none"]["step_bytes"]:
+            problems.append(f"{arch}: full's step bytes not below none's")
+        del pristine, batch, done, params0, state0, loss0
         torch.cuda.empty_cache()
     if problems:
-        raise AssertionError(f"arch-train: {problems} failed their checks")
+        raise AssertionError(f"train-remat: {problems}")
+    return rows
+
+
+def none_peak_estimate(full_peak: int, remat_row: dict, cfg) -> float:
+    """The peak allocated bytes a full-depth run of ``cfg`` would reach
+    under ``"none"``, from its peak under ``"full"`` and ``train-remat``'s
+    cut: each checkpointed layer keeps its activations instead of its
+    input, except those of one group, which ``full`` holds while it
+    recomputes it: full_peak + (step_bytes none - full at the cut) x
+    (W - g) / (W_cut - g), W the checkpointed layers, g the group's."""
+    g = remat_row["group"]
+    cut = remat_row["policies"]
+    return full_peak + ((cut["none"]["step_bytes"] - cut["full"]["step_bytes"])
+                        * (wrapped_layers(cfg) - g) / (remat_row["wrapped_layers"] - g))
+
+
+def phase_train_full_depth(torch, smi: str, remat_rows: dict | None) -> dict:
+    """``launch.train.train`` on each FULL_DEPTH_ARCHS config at published
+    width and depth (bf16, random weights from SEED, the registered remat
+    ``"full"``): FULL_DEPTH_STEPS steps of FULL_DEPTH_BATCH x FULL_DEPTH_SEQ
+    tokens in FULL_DEPTH_MICRO microbatches at FULL_DEPTH_LR, no checkpoint.  The first loss
+    finite and within 0.1-3 x log V, the mean of the last 3 below it, the
+    gradient norm finite and nonzero at every step, K3's backward once an
+    attention layer and microbatch a step (every one on the TMA route) and
+    its forward ``forward_launches`` times (writing lse), the peak under the
+    card's 80 GB; with ``train-remat``'s cut of the config, the estimate of
+    the peak under ``"none"`` (``none_peak_estimate``; never run)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.train import train
+
+    rows, problems = {}, []
+    for arch in FULL_DEPTH_ARCHS:
+        cfg = get_config(arch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train(cfg, steps=FULL_DEPTH_STEPS, batch=FULL_DEPTH_BATCH, seq=FULL_DEPTH_SEQ,
+                    lr=FULL_DEPTH_LR, microbatches=FULL_DEPTH_MICRO, seed=SEED, device=DEVICE,
+                    log=lambda line: None)
+        run_s = time.perf_counter() - t0
+        counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+        routes = dict(fa_ops.BWD_ROUTES)
+        lse_writes = fa_ops.LSE_WRITES["flash_attention"]
+        want = kernel_layers(cfg, "flash_attention") * FULL_DEPTH_MICRO * FULL_DEPTH_STEPS
+        want_fwd = (forward_launches(cfg, "flash_attention") * FULL_DEPTH_MICRO
+                    * FULL_DEPTH_STEPS)
+        step_ms = sorted(x * 1e3 for x in res.step_s[1:])          # the first step warms up
+        log_v = float(np.log(cfg.vocab_size))
+        row = {"phase": "train-full-depth", "arch": arch, "dtype": cfg.dtype,
+               "remat": cfg.remat, "layers": cfg.n_layers,
+               "params": sum(p.numel() for p in res.params.parameters()),
+               "batch": FULL_DEPTH_BATCH, "seq": FULL_DEPTH_SEQ,
+               "microbatches": FULL_DEPTH_MICRO, "steps": FULL_DEPTH_STEPS, "lr": FULL_DEPTH_LR,
+               "prefix_embeds": cfg.n_prefix if cfg.frontend else 0,
+               "losses": res.losses, "log_vocab": log_v, "grad_norms": res.grad_norms,
+               "ms_per_step": {"median": step_ms[len(step_ms) // 2], "min": step_ms[0],
+                               "first": res.step_s[0] * 1e3},
+               "tokens_per_s": res.tokens_per_s, "peak_allocated_bytes": res.peak_bytes,
+               "none_peak_estimate_bytes": (
+                   none_peak_estimate(res.peak_bytes, remat_rows[arch], cfg)
+                   if remat_rows else None),
+               "launches": counts, "bwd_routes": routes, "lse_writes": lse_writes,
+               "run_s": run_s, "card": smi}
+        emit(row)
+        rows[arch] = row
+        del res
+        torch.cuda.empty_cache()
+        losses, gnorms = row["losses"], row["grad_norms"]
+        if not (np.isfinite(losses[0]) and 0.1 * log_v < losses[0] < 3 * log_v):
+            problems.append(f"{arch}: first loss {losses[0]} against log V {log_v}")
+        if not np.mean(losses[-3:]) < losses[0]:
+            problems.append(f"{arch}: the loss did not fall")
+        if not all(np.isfinite(g) and g > 0 for g in gnorms) or len(gnorms) != len(losses):
+            problems.append(f"{arch}: gradient norms {gnorms}")
+        if (want < 1 or counts != {"flash_attention": want_fwd, "flash_attention_bwd": want}
+                or lse_writes != want_fwd or routes != {"tma": want, "copy": 0, "f32": 0}):
+            problems.append(f"{arch}: K3 launches {counts}, lse {lse_writes}, routes {routes}, "
+                            f"want {want_fwd} forward (and lse), {want} backward on TMA's")
+        if not row["peak_allocated_bytes"] < CARD_BYTES:
+            problems.append(f"{arch}: peak {row['peak_allocated_bytes']}")
+    if problems:
+        raise AssertionError(f"train-full-depth: {problems}")
     return rows
 
 
@@ -3002,8 +3200,9 @@ def main() -> int:
         "train-parity-mamba")
     trained_mamba = run("train-mamba2", phase_train_lm, torch, smi, SSM_ARCH, "ssd_scan",
                         "train-mamba2")
-    run("arch-train", phase_arch_train, torch, smi)
     trained_rg = run("train-recurrentgemma", phase_train_recurrentgemma, torch, smi)
+    remat = run("train-remat", phase_train_remat, torch, smi)
+    full_depth = run("train-full-depth", phase_train_full_depth, torch, smi, remat)
     emit({"phase": "seconds", **seconds})
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -3051,6 +3250,8 @@ def main() -> int:
         "launches_serve_granite": serving["flash_attention_granite"]["launches"][
             "flash_attention"],
         "launches_train_qwen2": trained["launches"]["flash_attention"],
+        "launches_train_full_depth": {a: r["launches"]["flash_attention"]
+                                      for a, r in full_depth.items()},
         **{f"{key}_dh256": rg[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")},
         "shape_dh256": dict(zip(("bh", "bkv", "s", "dh", "window"), FA_SERVING_RG),
@@ -3082,6 +3283,8 @@ def main() -> int:
                             dtype="bfloat16"),
         # RecurrentGemma-2B's training shape (Dh 256) and its training run
         "launches_train_recurrentgemma": trained_rg["launches"]["flash_attention_bwd"],
+        "launches_train_full_depth": {a: r["launches"]["flash_attention_bwd"]
+                                      for a, r in full_depth.items()},
         **{f"{key}_dh256": rg[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")},
         "shape_dh256": dict(zip(("bh", "bkv", "s", "dh", "window"), FA_BWD_TRAIN_RG),

@@ -82,7 +82,11 @@ class ModelConfig:
     n_prefix: int = 0                  # frontend embedding positions
     # --- numerics / runtime ---
     dtype: str = "bfloat16"
-    remat: str = "full"                # full | dots | none (read by the JAX package)
+    # training memory (models.transformer._remat): "none" keeps every
+    # activation, "dots" keeps the products with no batch dimension and
+    # recomputes the rest of each layer group, any other value ("full")
+    # recomputes each group whole in the backward; the bits are the same
+    remat: str = "full"                # full | dots | none
     scan_layers: bool = True           # (read by the JAX package)
     attn_chunk: int = 1024             # KV-chunk for memory-bounded attention
     loss_chunk: int = 0                # 0 = unchunked vocab loss

@@ -18,15 +18,24 @@ Training: where grad mode is on and q, k or v requires grad, a CUDA call
 goes through ``_FlashAttention``, a ``torch.autograd.Function``.  Its
 forward launches the same kernel with an f32 (BH, S) ``lse`` output and
 saves q, k, v, the output and lse; its backward launches
-``csrc/flash_attention_bwd.cu`` (D = rowsum(dO o O), then dK/dV, for bf16
-a pass that sums the G-chunks' partials, then dQ), counted once a call in
+``csrc/flash_attention_bwd.cu`` (D = rowsum(dO o O), then dK/dV, for bf16 a
+pass that sums the G-chunks' partials, then dQ), counted once a call in
 ``LAUNCHES["flash_attention_bwd"]`` and once in ``BWD_ROUTES`` under the
 route it took: ``"tma"`` (bf16, tiles loaded by TMA), ``"copy"`` (bf16,
 where Dh % 8 != 0 or an input is not 16-byte aligned: the same kernels with
 the tiles copied by threads) or ``"f32"``.  ``LSE_WRITES`` counts the
-forward launches that wrote lse.  Otherwise (serving, or ``torch.no_grad``)
-lse is not written and nothing is saved.  The backward takes every Dh the
-forward takes.  On the CPU, autograd differentiates ``mha_ref`` itself.
+forward launches that wrote lse.  Under ``models.transformer``'s remat
+(``cfg.remat`` ``"full"`` or ``"dots"``) a checkpointed layer's forward
+runs again in the backward: the recompute is a launch like the first, in
+``LAUNCHES`` and ``LSE_WRITES``, so such a layer launches the forward twice
+a microbatch and the backward once.  The kernel has no atomics, so the
+recomputed out and lse are the first forward's bits, and the Function saves
+tensors of the same shapes, dtypes and device both times (as the
+checkpoint's determinism check requires); both are written into fresh
+outputs, never into a tensor the selective policy keeps.  Otherwise
+(serving, or ``torch.no_grad``) lse is not written and nothing is saved.
+The backward takes every Dh the forward takes.  On the CPU, autograd
+differentiates ``mha_ref`` itself.
 """
 
 from __future__ import annotations

@@ -22,12 +22,19 @@ Training: where grad mode is on and an input requires grad, a CUDA call
 goes through ``_SSDScan``, a ``torch.autograd.Function``.  Its forward
 launches the same three kernels and keeps their span-states scratch (the
 state entering each span of SPAN chunks, which the pass kernel writes there
-anyway), counted in ``STATES_KEPT``; its backward launches the three kernels
-of ``csrc/ssd_scan_bwd.cu`` (``ssd_scan_bwd``), counted once a call in
-``LAUNCHES["ssd_scan_bwd"]``, and takes ``None`` for either cotangent.
+anyway), counted in ``STATES_KEPT``; its backward launches the three
+kernels of ``csrc/ssd_scan_bwd.cu`` (``ssd_scan_bwd``), counted once a call
+in ``LAUNCHES["ssd_scan_bwd"]``, and takes ``None`` for either cotangent.
 Otherwise (serving, or ``torch.no_grad``) the scratch is dropped and
-nothing is saved, as before.  On the CPU, autograd differentiates
-``ssd_chunked``.
+nothing is saved, as before.  Under ``models.transformer``'s remat
+(``cfg.remat`` ``"full"`` or ``"dots"``) a checkpointed layer's forward
+runs again in the backward: the recompute is a launch like the first, in
+``LAUNCHES`` and ``STATES_KEPT``, so such a layer launches the forward
+twice a microbatch and the backward once.  The kernels have no atomics, so
+the recomputed y and span states are the first forward's bits, saved with
+the same shapes, dtypes and device; every output and scratch is allocated
+fresh, never a tensor the selective policy keeps.  On the CPU, autograd
+differentiates ``ssd_chunked``.
 """
 
 from __future__ import annotations

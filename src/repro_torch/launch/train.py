@@ -42,15 +42,17 @@ __all__ = ["TrainResult", "train", "main"]
 
 @dataclass
 class TrainResult:
-    """What a training run did: the loss of every step it ran (steps
-    ``start`` .. ``steps`` - 1), each step's wall seconds (to the loss's
-    read, which waits for the device), the tokens a second over the run,
+    """What a training run did: the loss and the gradient norm (before
+    clipping) of every step it ran (steps ``start`` .. ``steps`` - 1), each
+    step's wall seconds (to the loss's read, which waits for the device),
+    the tokens a second over the run,
     the device's peak allocated bytes (None on the CPU), and the final
     parameters and optimizer state."""
 
     start: int
     steps: int
     losses: list[float] = field(default_factory=list)
+    grad_norms: list[float] = field(default_factory=list)
     step_s: list[float] = field(default_factory=list)
     tokens_per_s: float = 0.0
     peak_bytes: int | None = None
@@ -94,11 +96,12 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-3,
         params, opt_state, metrics = step_fn(params, opt_state, batch_to(data.batch_at(step), dev))
         res.losses.append(float(metrics["loss"]))
         res.step_s.append(time.perf_counter() - t_step)
+        res.grad_norms.append(float(metrics["grad_norm"]))
         if step % log_every == 0 or step == steps - 1:
             dt = time.perf_counter() - t0
             tok_s = (step - start + 1) * batch * seq / max(dt, 1e-9)
             log(f"step {step:5d} loss {res.losses[-1]:.4f} "
-                f"gnorm {float(metrics['grad_norm']):.3f} "
+                f"gnorm {res.grad_norms[-1]:.3f} "
                 f"lr {float(metrics['lr']):.2e} tok/s {tok_s:,.0f}")
         if mgr and (step + 1) % ckpt_every == 0:
             mgr.save(step + 1, {"params": params, "opt": opt_state})

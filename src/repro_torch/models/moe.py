@@ -9,12 +9,16 @@ C = ceil(S·k·cf / E) (``moe_capacity``); a choice whose position in its
 expert reaches C is dropped and adds nothing, so its token passes through
 the residual untouched.
 
-Every step is deterministic on the card: positions are one cumsum of int
-one-hots, the inverse slot table is written by one ``scatter_`` whose
-indices are all distinct (dropped choices go to slots of their own past the
-table, which are then cut off), and the combine gathers each token's k rows
-and sums them in rank order j = 0..k-1 instead of the reference's
-scatter-add (the same terms in another order).  No atomics.
+Every step is deterministic on the card, forward and backward: positions
+are one cumsum of int one-hots, the inverse slot table is written by one
+``scatter_`` whose indices are all distinct (dropped choices go to slots of
+their own past the table, which are then cut off), the dispatch writes each
+choice's token row into its slot by a ``scatter_`` of distinct indices the
+same way (its gradient gathers each token's k slot rows and sums them; a
+gather from the tokens would scatter-add duplicates with atomics), and the
+combine gathers each token's k rows and sums them in rank order j = 0..k-1
+instead of the reference's scatter-add (the same terms in another order).
+No atomics, so a rematerialised layer recomputes the same bits.
 
 ``apply_moe`` is ``apply_moe_local``: the reference's ``shard_map`` expert
 parallelism (all-gather / psum-scatter and the all-to-all dispatch) comes
@@ -76,28 +80,36 @@ def _route(cfg, x, router, capacity):
     earlier = (torch.cumsum(oh, dim=1) - oh).gather(2, order[..., None])[..., 0]
     pos = earlier.view(B, k, S).transpose(1, 2)                      # (B, S, k)
     slot = torch.where(pos >= C, E * C, ik * C + pos)                # (B, S, k)
-    # invert slot -> token: kept slots are distinct; each dropped choice
-    # writes a slot of its own past E·C + 1, and those are cut off
-    n = S * k
-    flat = slot.reshape(B, n)
-    spill = E * C + 1 + torch.arange(n, device=x.device)
-    dest = torch.where(flat < E * C, flat, spill)
+    # invert slot -> token: kept slots are distinct, dropped choices spill
+    # past the table and are cut off
+    dest = _spill_dest(slot, E * C)
+    n = dest.shape[1]
     token_ids = torch.arange(S, device=x.device).repeat_interleave(k).expand(B, n)
     table = torch.full((B, E * C + 1 + n), S, dtype=torch.int64, device=x.device)
     table.scatter_(1, dest, token_ids)
     return gk, slot, table[:, :E * C + 1], gates_full
 
 
-def _dispatch(x, slot_token, n_slots):
+def _spill_dest(slot, n_slots):
+    """Each choice's row (B, S·k) in a buffer of n_slots + 1 + S·k rows: its
+    slot, or for a dropped choice (slot n_slots) a spill row of its own past
+    n_slots + 1, so the indices are distinct and a scatter needs no atomics."""
+    B, S, k = slot.shape
+    flat = slot.reshape(B, S * k)
+    spill = n_slots + 1 + torch.arange(S * k, device=slot.device)
+    return torch.where(flat < n_slots, flat, spill)
+
+
+def _dispatch(x, slot, n_slots):
     """Token rows into the slots: (B, n_slots, d), zero where a slot is
-    empty, and the (B, n_slots) mask of filled slots."""
+    empty; each choice's row scattered to ``_spill_dest``'s row."""
     B, S, d = x.shape
-    table = slot_token[:, :n_slots]
-    valid = table < S
-    tok = torch.where(valid, table, 0)
-    rows = torch.gather(x, 1, tok[..., None].expand(B, n_slots, d))
-    return torch.where(valid[..., None], rows, torch.zeros((), dtype=x.dtype,
-                                                           device=x.device)), valid
+    dest = _spill_dest(slot, n_slots)
+    n = dest.shape[1]
+    rows = x[:, :, None, :].expand(B, S, n // S, d).reshape(B, n, d)
+    out = torch.zeros((B, n_slots + 1 + n, d), dtype=x.dtype, device=x.device)
+    out.scatter_(1, dest[..., None].expand(B, n, d), rows)
+    return out[:, :n_slots]
 
 
 def _expert_ffn(w_gate, w_up, w_down, xin):
@@ -128,7 +140,8 @@ def _moe_core(cfg, p, x, capacity):
     B, S, d = x.shape
     E, C = cfg.n_experts, capacity
     gk, slot, slot_token, _ = _route(cfg, x, p["router"], C)
-    xin, valid = _dispatch(x, slot_token, E * C)
+    xin = _dispatch(x, slot, E * C)
+    valid = slot_token[:, :E * C] < S
     h = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], xin.view(B, E, C, d))
     return _combine(h.reshape(B, E * C, d), valid, slot, gk)
 

@@ -3,9 +3,21 @@
 Ports ``repro.models.transformer`` for every family.  A config's layer
 sequence is ``block_pattern × n_groups + tail_pattern``; the
 port keeps it as an ``nn.ModuleList`` of per-layer blocks in that order, run
-by a Python loop: nothing is scanned and nothing is rematerialised (the
-reference's ``lax.scan`` and remat exist for XLA's compile time and
-training memory).
+by a Python loop: nothing is scanned (the reference's ``lax.scan`` exists
+for XLA's compile time).
+
+Rematerialisation follows ``cfg.remat`` as the reference's ``_remat`` does:
+with grad enabled and no caches, each group of ``len(block_pattern)``
+consecutive layers runs under a non-reentrant
+``torch.utils.checkpoint.checkpoint``, so its forward runs again in the
+backward; the tail's layers run unwrapped.  ``"none"`` keeps every
+activation; ``"dots"`` keeps the outputs of the products with no batch
+dimension (``_keep_products``: the projections and the MLP, as
+``checkpoint_dots_with_no_batch_dims`` does) and recomputes the rest,
+attention and the SSD scan included; any other value (``"full"``, the
+default) keeps only each group's input.  A recomputed forward gives the
+same bits, so the policy changes memory and time, never a number.  Under
+``torch.no_grad`` / ``inference_mode`` and in prefill nothing is wrapped.
 
 Block kinds: ``attn`` (norm -> GQA attention -> residual -> norm -> MLP ->
 residual), ``local_attn`` (the same with ``window = cfg.local_window``),
@@ -22,8 +34,12 @@ in place.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -158,13 +174,50 @@ def stack_init(gen, cfg, dtype, device) -> nn.ModuleList:
                          for kind in cfg.layer_kinds)
 
 
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_products(ctx, op, *args, **kwargs):
+    """``"dots"``: keep what ``mm`` and ``addmm`` return (``x @ w``), and a
+    ``bmm`` over one batch entry (``einsum``'s form of a product with no
+    batch dimension: the attention projections); recompute the rest."""
+    if op in _PRODUCTS or (op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn):
+    """``fn`` under ``cfg.remat``: as it is (``"none"``), checkpointed
+    keeping the products (``"dots"``), or checkpointed whole."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts, _keep_products))
+    return partial(checkpoint, fn, use_reentrant=False)
+
+
+def _apply_layers(blocks, cfg, x, positions):
+    for block in blocks:
+        x, _ = apply_block(block, cfg, block.kind, x, positions)
+    return x
+
+
 def apply_stack(stack, cfg, x, positions, caches=None):
     """Forward through all layers.  With ``caches`` (prefill) each layer's
-    cache is filled in place and the list is returned."""
-    for i, block in enumerate(stack):
-        x, _ = apply_block(block, cfg, block.kind, x, positions,
-                           None if caches is None else caches[i])
-    return x, caches
+    cache is filled in place and the list is returned.  Otherwise, with
+    grad enabled, each ``block_pattern`` group runs under ``_remat``."""
+    if caches is not None:
+        for block, cache in zip(stack, caches):
+            x, _ = apply_block(block, cfg, block.kind, x, positions, cache)
+        return x, caches
+    layers = list(stack)
+    size = len(cfg.block_pattern)
+    body = cfg.n_groups * size
+    group = _remat(cfg, _apply_layers) if torch.is_grad_enabled() else _apply_layers
+    for g in range(0, body, size):
+        x = group(layers[g:g + size], cfg, x, positions)
+    return _apply_layers(layers[body:], cfg, x, positions), None
 
 
 def stack_cache_init(cfg, batch, cache_len, dtype=torch.bfloat16, *, device):

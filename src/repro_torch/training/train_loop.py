@@ -2,14 +2,17 @@
 
 Ports ``repro.training.train_loop``.  ``make_train_step(cfg, opt_cfg,
 n_microbatches)`` returns ``train_step(params, opt_state, batch) ->
-(params, opt_state, metrics)``: the gradient of ``models.model.loss_fn``
-by ``torch.autograd.grad`` (so nothing accumulates in ``.grad``), then
+(params, opt_state, metrics)``: the gradient of ``models.model.loss_fn`` by
+``torch.autograd.grad`` (so nothing accumulates in ``.grad``), then
 ``adamw_step``, which updates the parameters and moments in place.  With
 ``n_microbatches > 1`` the batch is split on its leading axis and the f32
 gradients are summed over the microbatches, then divided once, as the
 reference's ``lax.scan`` does; activation memory then scales with the
-microbatch.  A parameter that the loss does not reach gets a zero gradient,
-as ``jax.grad`` gives it.
+microbatch.  The sums are accumulated and divided in place and each
+microbatch's gradients are freed as they are summed, so the step holds one
+f32 copy of the gradients.  ``models.transformer`` rematerialises the layer
+groups under ``cfg.remat``.  A parameter that the loss does not reach gets
+a zero gradient, as ``jax.grad`` gives it.
 
 The parameters must require grad: ``params.requires_grad_(True)`` (they are
 frozen at creation, for serving).  On the card every attention layer runs
@@ -64,10 +67,10 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, n_microbatches: int = 1):
                 l, g = _value_and_grad(params, cfg, mb, named)
                 loss = loss + l
                 for n in grads:
-                    grads[n] += g[n]
-                del g
+                    grads[n] += g.pop(n)        # each microbatch gradient freed once summed
             loss = loss / n_microbatches
-            grads = {n: g / n_microbatches for n, g in grads.items()}
+            for g in grads.values():
+                g.div_(n_microbatches)          # in place: no second f32 copy
         params, opt_state, metrics = adamw_step(params, grads, opt_state, opt_cfg,
                                                 decay_names(cfg, params))
         metrics["loss"] = loss
