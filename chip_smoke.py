@@ -190,6 +190,27 @@ microbatch and its backward once; ``forward_launches``);
   nonzero gradient norms, K3's launches, the peak under 80 GB, tok/s, ms a
   step, and the estimated peak under ``none`` (never run);
 
+* ``pad-mesh`` — configs padded by the port's ``pad_for_mesh`` (heads,
+  KV heads, vocab and experts; PAD_MESH_F32): at published width in f32,
+  2 layers (RecurrentGemma-2B 5), each padded model holding the unpadded
+  model's weights and random pad slots, a prefill of 2 x 1,024 tokens and
+  4 decode steps with logits within LM_PARITY_TOL of the unpadded model's
+  and the pad logits -1e30, and one ``build_train`` step whose loss is
+  within 1e-5 of the unpadded model's and whose gradient is exactly 0 on
+  every pad slot (K3 and its backward at G 7, 8, 10 and 16, Dh 64 and
+  256); K3 forward and backward at those head groups in bf16 and f32 with
+  dO zero on the pad heads (their dq and the dk, dv of KV heads serving
+  only them exactly 0), ms beside the unpadded shape's; Qwen2-0.5B padded
+  for tp 8 with ``pad_kv`` (56 heads over 8) served at full depth in bf16
+  beside the unpadded model (req/s, K3's launches, peak bytes, and one
+  micro-batch's prefill in turns), with the phase's seconds;
+
+the serve phases, ``train-qwen2``, ``train-mamba2`` and ``train-full-depth``
+also print ``mfu``: ``roofline.analysis.model_flops`` (6·N·D a training
+step, 2·N·D a served token, N the logical parameters, attention's score
+FLOPs left out) over the seconds at the bf16 peak, ``HW["peak_flops"]``;
+every peak a bound uses is read from ``HW``;
+
 then each phase's seconds, the ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
@@ -299,9 +320,6 @@ LOCKSTEP_REPLACES = {"lockstep_scan": "src/repro/sim/batched.py:1559",
 LOCKSTEP_CARRIED, CYCLES_PER_DEPENDENT = 2, 4
 N_CLUSTERS = 16
 SIM_CENTERS = 3 * np.random.default_rng([SEED, DIM]).standard_normal((N_CLUSTERS, DIM))
-# H100 SXM published peaks (NVIDIA data sheet): HBM rate, f32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 SOURCE = "src/repro_torch/kernels/kmeans_distance/csrc/kmeans_distance.cu"
 REPLACES = {"pairwise_sq_dists": "src/repro/kernels/kmeans_distance/kernel.py:57",
             "assign": "src/repro/kernels/kmeans_distance/kernel.py:102"}
@@ -356,8 +374,6 @@ FA_WINDOWED = [(40, 4, 4_096, 256, 2_048, "bfloat16"), (40, 4, 4_096, 256, 2_048
 # parity test's 3e-2 against JAX.
 FA_TOLERANCE = {"float32": {"rtol": 2e-5, "atol": 2e-5},
                 "bfloat16": {"rtol": 8e-3, "atol": 1e-4}}
-BF16_OPS_PER_S = 989e12                           # H100 SXM dense bf16 tensor cores
-TF32_OPS_PER_S = 495e12                           # H100 SXM dense TF32 tensor cores
 PARITY_PROMPT, PARITY_NEW = 100, 8                # ragged against K3's 64-row tile
 # f32 on card and CPU sum in other orders (and K3's online softmax against
 # mha_ref's) through 24 layers; random-weight logits are O(1)
@@ -461,6 +477,42 @@ CARD_BYTES = 80e9                                 # the H100's device memory
 # train-recurrentgemma: full width and depth, bf16, 4 x 1,024 tokens a step
 # in 2 microbatches, 8 steps
 TRAIN_RG_BATCH, TRAIN_RG_SEQ, TRAIN_RG_MICRO, TRAIN_RG_STEPS = 4, 1_024, 2, 8
+# pad-mesh: configs padded by the port's pad_for_mesh for a model axis of tp,
+# (arch, tp, pad_kv, layers) at published width in f32: Qwen2-0.5B's 14
+# heads over 2 KV heads to 16 over 2 (G 7 -> 8) and, with pad_kv, 56 over 8
+# (G 7 kept); RecurrentGemma-2B's 10 over 1 to 16 over 1 (G 16) and, with
+# pad_kv, 80 over 8 (G 10), Dh 256 and its 2,048 window, 5 layers (a
+# group and the tail: 3 is no depth of its pattern with its 2-layer tail);
+# InternVL2-1B's heads 14 -> 16 and vocab 151,655 -> 151,656; Granite's
+# heads 24 -> 32, vocab 49,155 -> 49,168 and experts 40 -> 48.  Each padded
+# model holds the unpadded model's weights and random pad slots: a prefill
+# of PAD_BATCH x PAD_PROMPT tokens and PAD_NEW decode steps, logits within
+# LM_PARITY_TOL of the unpadded model's; one training step, the loss within
+# rtol PAD_LOSS_RTOL and every pad slot's gradient exactly 0
+PAD_MESH_F32 = [(DENSE_ARCH, 8, False, 2), (DENSE_ARCH, 8, True, 2),
+                (HYBRID_ARCH, 8, False, 5), (HYBRID_ARCH, 8, True, 5),
+                ("internvl2-1b", 4, False, 2), (MOE_ARCH, 16, False, 2)]
+PAD_BATCH, PAD_PROMPT, PAD_NEW, PAD_LOSS_RTOL = 2, 1_024, 4, 1e-5
+# then Qwen2-0.5B padded for tp 8 with pad_kv at full depth in bf16, served
+# as the serving cells are, beside the unpadded model
+PAD_SERVE = (DENSE_ARCH, 8, True)
+# and K3 forward and backward on padded heads in bf16 and f32 at the
+# shapes the phase's models give it, dO zero on the pad heads: (heads,
+# KV heads, padded heads, padded KV heads, Dh, window), B = PAD_BATCH
+PAD_K3 = [(14, 2, 16, 2, 64, 0), (14, 2, 56, 8, 64, 0),
+          (10, 1, 16, 1, 256, 2_048), (10, 1, 80, 8, 256, 2_048)]
+# mfu: model_flops (6·N·D training, 2·N·D a forward token; N the logical
+# parameters) over the seconds at the bf16 peak
+MFU_NOTE = "6·N·D (2·N·D serving) leaves out attention's score FLOPs"
+
+
+def peak(key: str) -> float:
+    """An H100 SXM published peak from ``repro_torch.roofline.analysis.HW``,
+    the one copy of them: ``hbm_bw`` (B/s), ``peak_flops`` (bf16 tensor
+    cores), ``tf32_flops``, ``f32_flops`` (outside the tensor cores)."""
+    from repro_torch.roofline.analysis import HW
+
+    return HW[key]
 
 
 def emit(obj) -> None:
@@ -608,7 +660,7 @@ def product_ms(ops: float, bytes_per_el: int) -> float:
     """ms of ``ops`` matrix-product operations at the rate of the input type
     on the tensor cores: bf16 at its peak; f32 in 3xTF32, three TF32
     products for each (the split that keeps f32 accuracy)."""
-    return (ops / BF16_OPS_PER_S if bytes_per_el == 2 else 3 * ops / TF32_OPS_PER_S) * 1e3
+    return (ops / peak("peak_flops") if bytes_per_el == 2 else 3 * ops / peak("tf32_flops")) * 1e3
 
 
 def fa_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int, window: int = 0):
@@ -618,11 +670,11 @@ def fa_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int, window: int 
     unmasked (query, key) pairs of each q row (``visible_pairs``; 2 Dh
     operations each for QK^T and for PV, a multiply-add counted as 2) on the
     tensor cores (``product_ms``: bf16, or f32 in 3xTF32)."""
-    t_bytes = (2 * bh + 2 * bkv) * s * dh * bytes_per_el / HBM_BYTES_PER_S * 1e3
+    t_bytes = (2 * bh + 2 * bkv) * s * dh * bytes_per_el / peak("hbm_bw") * 1e3
     ops = 4.0 * bh * visible_pairs(s, window) * dh
     t_ops = product_ms(ops, bytes_per_el)
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), by, ops / peak("f32_flops") * 1e3
 
 
 def bound(n: int, k: int, d: int, in_bytes_per_el: int, out_bytes: int,
@@ -633,9 +685,9 @@ def bound(n: int, k: int, d: int, in_bytes_per_el: int, out_bytes: int,
     products, 2*(n+k)*d for the norms, and ``pair_ops`` for each (point,
     centroid) pair (K1: add the norms, scale, subtract, clamp; K2 also
     compares)."""
-    t_bytes = ((n + k) * d * in_bytes_per_el + out_bytes) / HBM_BYTES_PER_S
+    t_bytes = ((n + k) * d * in_bytes_per_el + out_bytes) / peak("hbm_bw")
     ops = 2.0 * n * k * d + 2.0 * (n + k) * d + pair_ops * n * k
-    t_ops = ops / F32_OPS_PER_S
+    t_ops = ops / peak("f32_flops")
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -646,7 +698,7 @@ def issue_floor_ms(n: int, k: int, d: int, pair_ops: int) -> float:
     f32 peak counts one FMA), at one instruction per f32 lane per cycle,
     half the f32 peak."""
     ops = 2.0 * n * k * d + 2.0 * (n + k) * d + pair_ops * n * k
-    return ops / (F32_OPS_PER_S / 2) * 1e3
+    return ops / (peak("f32_flops") / 2) * 1e3
 
 
 def device_ms_by_kernel(torch, fn, kernels, calls: int = 10) -> dict:
@@ -1092,6 +1144,14 @@ def phase_lockwatch(torch, smi: str) -> dict:
     return out
 
 
+def averages(prof):
+    """``prof.key_averages()``, computed once a profile: each call of it
+    averages every event again (~1 s a training step's profile)."""
+    if not hasattr(prof, "chip_smoke_averages"):
+        prof.chip_smoke_averages = prof.key_averages()
+    return prof.chip_smoke_averages
+
+
 def device_time_rows(prof) -> list[dict]:
     """Device self time by kernel (and memcpy/memset) from a ``torch.profiler``
     run, largest first.  Only device-side kernel events count: a CPU op's
@@ -1101,7 +1161,7 @@ def device_time_rows(prof) -> list[dict]:
     from torch.autograd import DeviceType
 
     rows = []
-    for ev in prof.key_averages():
+    for ev in averages(prof):
         if ev.device_type == DeviceType.CPU or getattr(ev, "is_user_annotation", False):
             continue
         us = getattr(ev, "self_device_time_total", None)
@@ -1119,7 +1179,7 @@ def host_time_rows(prof, top: int = 10) -> list[dict]:
     from torch.autograd import DeviceType
 
     rows = [{"name": ev.key[:96], "calls": ev.count, "host_ms": ev.self_cpu_time_total / 1e3}
-            for ev in prof.key_averages()
+            for ev in averages(prof)
             if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total > 0]
     rows.sort(key=lambda r: -r["host_ms"])
     return rows[:top]
@@ -1156,7 +1216,7 @@ def span_device_ms(prof, labels) -> dict:
     from torch.autograd import DeviceType
 
     out = {label: "not measured" for label in labels}
-    for ev in prof.key_averages():
+    for ev in averages(prof):
         if ev.key in out and ev.device_type == DeviceType.CPU:
             us = getattr(ev, "device_time_total", None)
             if us is None:
@@ -1741,8 +1801,8 @@ def lockstep_rows(torch, exp, smi: str) -> dict:
             # per step and seed (grid: 3 max, 1 add; chain: 2 mul, 2 add, exp,
             # max) are far below the bytes' time
             in_bytes = S * n * 4 + (12 if name == "grid_lockstep_scan" else 8) * n
-            t_bytes = (in_bytes + S * n * 4) / HBM_BYTES_PER_S
-            t_ops = S * n * (4 if name == "grid_lockstep_scan" else 6) / F32_OPS_PER_S
+            t_bytes = (in_bytes + S * n * 4) / peak("hbm_bw")
+            t_ops = S * n * (4 if name == "grid_lockstep_scan" else 6) / peak("f32_flops")
             chain = (writer_depth(g["parts"], g["conts"], g["n_parts"], g["n_conts"])
                      if name == "grid_lockstep_scan" else n)
             row = {"phase": "whatif-kernel", "kernel": name, "seeds": S, "steps": n,
@@ -1934,15 +1994,15 @@ def ssd_bound(b: int, s: int, h: int, p: int, n: int, with_h0: bool):
     three: hi/lo splits of both operands) and the decays on the CUDA
     cores."""
     t_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
-                   + (2 if with_h0 else 1) * b * h * p * n) / HBM_BYTES_PER_S
+                   + (2 if with_h0 else 1) * b * h * p * n) / peak("hbm_bw")
     products = rest = 0.0
     for s0 in range(0, s, SSD_Q):
         q = min(SSD_Q, s - s0)
         pairs = q * (q + 1) / 2
         products += b * pairs * 2 * n + b * h * (pairs * 2 * p + 4 * q * p * n)
         rest += b * h * pairs
-    t_cores = (products + rest) / F32_OPS_PER_S
-    t_tf32 = 3 * products / TF32_OPS_PER_S + rest / F32_OPS_PER_S
+    t_cores = (products + rest) / peak("f32_flops")
+    t_tf32 = 3 * products / peak("tf32_flops") + rest / peak("f32_flops")
     t_ops = min(t_cores, t_tf32)
     route = "3xTF32 tensor cores" if t_tf32 <= t_cores else "f32 CUDA cores"
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", route,
@@ -2041,15 +2101,15 @@ def ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, with_h0: bool):
     spans = -(-chunks // 4)                  # of the saved states, 4 chunks each
     t_bytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 2 * h + 4 * b * s * n
                    + b * h * spans * p * n + (2 if with_h0 else 0) * b * h * p * n
-                   ) / HBM_BYTES_PER_S
+                   ) / peak("hbm_bw")
     products = rest = 0.0
     for s0 in range(0, s, SSD_Q):
         q = min(SSD_Q, s - s0)
         pairs = q * (q + 1) / 2
         products += b * pairs * 2 * n + b * h * (pairs * (4 * p + 4 * n) + 8 * q * p * n)
         rest += 3 * b * h * pairs
-    t_cores = (products + rest) / F32_OPS_PER_S
-    t_tf32 = 3 * products / TF32_OPS_PER_S + rest / F32_OPS_PER_S
+    t_cores = (products + rest) / peak("f32_flops")
+    t_tf32 = 3 * products / peak("tf32_flops") + rest / peak("f32_flops")
     t_ops = min(t_cores, t_tf32)
     route = "3xTF32 tensor cores" if t_tf32 <= t_cores else "f32 CUDA cores"
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", route,
@@ -2294,14 +2354,15 @@ def _recorded(routed, calls: list):
 
 def phase_serve(torch, smi: str, params, arch: str, kernel: str,
                 requests: int = SERVE_REQUESTS, new_tokens: int = SERVE_NEW,
-                phase: str = "serve") -> dict:
-    """The LM serving path of ``arch`` at full width in bf16; every count
-    set to 0 just before and read just after, and ``kernel`` launched at
-    least once per layer and micro-batch."""
+                phase: str = "serve", cfg=None) -> dict:
+    """The LM serving path of ``arch`` (or of ``cfg``, a padded config of
+    it) at full width in bf16; every count set to 0 just before and read
+    just after, and ``kernel`` launched at least once per layer and
+    micro-batch; ``mfu`` from the serve's wall seconds."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import serve
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     prompts = np.random.default_rng([SEED, 4]).integers(
         0, cfg.vocab_size, (requests, SERVE_PROMPT))
     torch.cuda.synchronize()
@@ -2328,7 +2389,9 @@ def phase_serve(torch, smi: str, params, arch: str, kernel: str,
            "decode_ms_per_step": 1e3 * float(np.mean([d for _, _, d in res.batches]))
            / max(1, new_tokens - 1),
            "launches": {kernel: n_launches}, "training_work": work,
-           "max_memory_allocated_bytes": peak, "card": smi}
+           "max_memory_allocated_bytes": peak,
+           **mfu(serve_flops(cfg, requests, SERVE_PROMPT, new_tokens), res.wall_s),
+           "card": smi}
     emit(out)
     problems = []
     if any(work.values()):
@@ -2540,7 +2603,7 @@ def phase_serve_profile(torch, smi: str, params, arch: str, kernel: str,
     device_ms = sum(r["device_ms"] for r in rows)
     kernel_ms = kernel_device_ms(rows, kernel)
     gemm_ms = gemm_device_ms(rows)
-    host = sorted(prof.key_averages(), key=lambda ev: -ev.self_cpu_time_total)
+    host = sorted(averages(prof), key=lambda ev: -ev.self_cpu_time_total)
     wall_ms = run["wall_s"] * 1e3
     measured = bool(rows)
     out = {"phase": phase, "arch": arch, "requests": PROFILE_REQUESTS,
@@ -2569,11 +2632,11 @@ def fa_bwd_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int, window: 
     visible (query, key) pairs of each q row (QK^T, dO V^T, P^T dO, dS K,
     dS^T Q; 2 Dh operations each, 2.5x the forward's two) on the tensor
     cores (``product_ms``: bf16, or f32 in 3xTF32)."""
-    t_bytes = ((4 * bh + 4 * bkv) * s * dh * bytes_per_el + 4 * bh * s) / HBM_BYTES_PER_S * 1e3
+    t_bytes = ((4 * bh + 4 * bkv) * s * dh * bytes_per_el + 4 * bh * s) / peak("hbm_bw") * 1e3
     ops = 10.0 * bh * visible_pairs(s, window) * dh
     t_ops = product_ms(ops, bytes_per_el)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            ops / F32_OPS_PER_S * 1e3)
+            ops / peak("f32_flops") * 1e3)
 
 
 def phase_kernel_k3_bwd(torch, smi: str) -> dict:
@@ -2821,6 +2884,8 @@ def phase_train_lm(torch, smi: str, arch: str = TRAIN_ARCH, kernel: str = "flash
            "ms_per_step": {"median": step_ms[len(step_ms) // 2], "min": step_ms[0],
                            "first": first.step_s[0] * 1e3},
            "tokens_per_s": first.tokens_per_s,
+           **mfu(train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ),
+                 TRAIN_BATCH * TRAIN_SEQ / first.tokens_per_s),
            "peak_allocated_bytes": max(first.peak_bytes, second.peak_bytes),
            "launches": counts, "bwd_routes": routes, "lse_writes": lse_writes,
            "ssd_states_kept": states_kept, "steps_run": steps_run,
@@ -3075,7 +3140,10 @@ def phase_train_full_depth(torch, smi: str, remat_rows: dict | None) -> dict:
                "losses": res.losses, "log_vocab": log_v, "grad_norms": res.grad_norms,
                "ms_per_step": {"median": step_ms[len(step_ms) // 2], "min": step_ms[0],
                                "first": res.step_s[0] * 1e3},
-               "tokens_per_s": res.tokens_per_s, "peak_allocated_bytes": res.peak_bytes,
+               "tokens_per_s": res.tokens_per_s,
+               **mfu(train_flops(cfg, FULL_DEPTH_BATCH, FULL_DEPTH_SEQ),
+                     FULL_DEPTH_BATCH * FULL_DEPTH_SEQ / res.tokens_per_s),
+               "peak_allocated_bytes": res.peak_bytes,
                "none_peak_estimate_bytes": (
                    none_peak_estimate(res.peak_bytes, remat_rows[arch], cfg)
                    if remat_rows else None),
@@ -3101,6 +3169,294 @@ def phase_train_full_depth(torch, smi: str, remat_rows: dict | None) -> dict:
     if problems:
         raise AssertionError(f"train-full-depth: {problems}")
     return rows
+
+
+def mfu(flops: float, seconds: float) -> dict:
+    """The model-FLOPs utilisation of ``flops`` useful operations in
+    ``seconds`` against the bf16 peak, with what it leaves out."""
+    return {"mfu": flops / (seconds * peak("peak_flops")), "mfu_note": MFU_NOTE}
+
+
+def serve_flops(cfg, requests: int, prompt: int, new_tokens: int) -> float:
+    """model_flops of a serve: each request's prefill, then its
+    new_tokens - 1 decode steps of one token."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.roofline.analysis import model_flops
+
+    return (model_flops(cfg, ShapeSpec("serve", prompt, requests, "prefill"), 1)
+            + (new_tokens - 1) * model_flops(cfg, ShapeSpec("serve", prompt, requests,
+                                                            "decode"), 1))
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """model_flops of one training step of batch x seq tokens."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.roofline.analysis import model_flops
+
+    return model_flops(cfg, ShapeSpec("train", seq, batch, "train"), 1)
+
+
+def padding_helpers():
+    """``tests/_padding.py`` of this checkout (the unpadded model inside a
+    padded one, and the pad slots), loaded by its path: the CPU tests' own
+    module, whatever else is named ``tests`` on the path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("padding_helpers",
+                                                  ROOT / "tests" / "_padding.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _pad_models(torch, arch: str, tp: int, pad_kv: bool, layers: int, dtype: str):
+    """(padded config, its parameters on the card, the unpadded config of the
+    same function, its parameters): the padded model drawn from SEED, the
+    unpadded one its real slots (``tests/_padding.py``)."""
+    from repro_torch.configs.base import get_config, pad_for_mesh
+    from repro_torch.models import model as M
+
+    base = dataclasses.replace(get_config(arch), dtype=dtype,
+                               n_layers=layers or get_config(arch).n_layers)
+    cfg = pad_for_mesh(base, tp, pad_kv)
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    uparams, ucfg = padding_helpers().unpadded(params, cfg, M)
+    return cfg, params, ucfg, uparams
+
+
+def _pad_serve_logits(torch, M, params, cfg, prompt, embeds, feed):
+    """Prefill logits, then PAD_NEW decode steps' (fed ``feed``), on the host."""
+    logits, caches = M.prefill(params, cfg, prompt, prompt.shape[1] + len(feed), embeds=embeds)
+    out = [logits.float()]
+    for i, tok in enumerate(feed):
+        logits, caches = M.decode_step(params, cfg, tok, caches, prompt.shape[1] + i)
+        out.append(logits.float())
+    return out
+
+
+def pad_mesh_model(torch, smi: str, arch: str, tp: int, pad_kv: bool, layers: int) -> dict:
+    """One PAD_MESH_F32 row: serving logits and one training step of the
+    padded model against the unpadded one, every pad slot's gradient."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models import model as M
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import init_opt_state
+
+    helpers = padding_helpers()
+
+    cfg, params, ucfg, uparams = _pad_models(torch, arch, tp, pad_kv, layers, "float32")
+    V = cfg.vocab_size
+    rng = np.random.default_rng([SEED, 8])
+    prompt = torch.from_numpy(rng.integers(0, V, (PAD_BATCH, PAD_PROMPT))).to(DEVICE)
+    feed = [torch.from_numpy(t).to(DEVICE) for t in rng.integers(0, V, (PAD_NEW, PAD_BATCH))]
+    embeds = None
+    if cfg.frontend is not None:
+        embeds = torch.from_numpy(rng.standard_normal(
+            (PAD_BATCH, cfg.n_prefix, cfg.d_model), dtype=np.float32)).to(DEVICE)
+    reset_counts()
+    with torch.inference_mode():
+        got = _pad_serve_logits(torch, M, params, cfg, prompt, embeds, feed)
+        serve_launches = launches("flash_attention")
+        want = _pad_serve_logits(torch, M, uparams, ucfg, prompt, embeds, feed)
+    diffs = [float((g[:, :V] - w).abs().max()) for g, w in zip(got, want)]
+    pad_logits_masked = all(bool((g[:, V:] == -1e30).all()) for g in got)
+    del got, want
+    data = SyntheticLM(vocab_size=V, seq_len=PAD_PROMPT, global_batch=PAD_BATCH, seed=SEED,
+                       n_prefix=cfg.n_prefix if cfg.frontend else 0,
+                       d_model=cfg.d_model if cfg.frontend else 0)
+    batch = train_loop.batch_to(data.batch_at(0), DEVICE)
+    with torch.no_grad():
+        want_loss = float(M.loss_fn(uparams, ucfg, batch))
+    del uparams
+    torch.cuda.empty_cache()
+    step, _ = build_train(cfg, ShapeSpec("pad-mesh", PAD_PROMPT, PAD_BATCH, "train"),
+                          device=DEVICE)
+    params.requires_grad_(True)
+    seen, adamw = {}, train_loop.adamw_step
+    train_loop.adamw_step = lambda p, grads, *a: (seen.update(grads), adamw(p, grads, *a))[1]
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        _, _, metrics = step(params, init_opt_state(params), batch)
+        loss = float(metrics["loss"])
+        step_s = time.perf_counter() - t0
+    finally:
+        train_loop.adamw_step = adamw
+    counts = {k: launches(k) for k in ("flash_attention", "flash_attention_bwd")}
+    pad_entries, nonzero = {}, []
+    for name, g in seen.items():
+        mask = helpers.pad_slots(name, tuple(g.shape), cfg)
+        if mask is None:
+            continue
+        kind = name.split(".")[-2] + "." + name.split(".")[-1]
+        pad_entries[kind] = pad_entries.get(kind, 0) + int(mask.sum())
+        if bool((g[mask.to(g.device)] != 0).any()):
+            nonzero.append(name)
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    row = {"phase": "pad-mesh", "arch": arch, "tp": tp, "pad_kv": pad_kv, "dtype": "float32",
+           "layers": cfg.n_layers, "heads": [cfg.n_heads, cfg.heads_p],
+           "kv_heads": [cfg.n_kv_heads, cfg.kv_heads_p],
+           "group": [cfg.n_heads // cfg.n_kv_heads, cfg.heads_p // cfg.kv_heads_p],
+           "regroups": helpers.regroups(cfg), "vocab": [V, cfg.vocab_p],
+           "experts": [cfg.n_experts, cfg.experts_p], "d_head": cfg.head_dim,
+           "unpadded_kv_heads": ucfg.n_kv_heads,
+           "batch": PAD_BATCH, "prompt": PAD_PROMPT, "decode_steps": PAD_NEW,
+           "logits_max_abs_diff": diffs, "tolerance": LM_PARITY_TOL,
+           "pad_logits_minus_1e30": pad_logits_masked,
+           "loss": loss, "loss_unpadded": want_loss, "loss_rel_err": loss_rel,
+           "pad_grad_entries": pad_entries, "pad_grads_nonzero": nonzero,
+           "step_s": step_s, "launches_serve": serve_launches, "launches_step": counts,
+           "card": smi}
+    emit(row)
+    del params, seen, batch
+    torch.cuda.empty_cache()
+    n = kernel_layers(cfg, "flash_attention")
+    problems = []
+    if max(diffs) > LM_PARITY_TOL or not pad_logits_masked:
+        problems.append(f"logits {diffs}, pad logits masked {pad_logits_masked}")
+    if not loss_rel <= PAD_LOSS_RTOL:
+        problems.append(f"loss {loss} against {want_loss}")
+    if nonzero or not pad_entries:
+        problems.append(f"pad slots with nonzero gradients {nonzero} of {pad_entries}")
+    if serve_launches != n or counts != {"flash_attention": forward_launches(cfg, "flash_attention"),
+                                         "flash_attention_bwd": n}:
+        problems.append(f"K3 launches {serve_launches} serving, {counts} a step")
+    row["ok"] = not problems
+    if problems:
+        raise AssertionError(f"pad-mesh {arch} tp {tp} pad_kv {pad_kv}: {problems}")
+    return row
+
+
+def _fwd_bwd_ms(torch, fa_ops, q, k, v, do, window: int) -> tuple[float, float]:
+    """K3's training forward (with lse) and its backward, ms each."""
+    out, lse = fa_ops._forward(q, k, v, window, with_lse=True)
+    return (cuda_ms(torch, lambda: fa_ops._forward(q, k, v, window, with_lse=True), iters=10),
+            cuda_ms(torch, lambda: fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window),
+                    iters=10))
+
+
+def pad_mesh_k3(torch, smi: str) -> list[dict]:
+    """K3 forward and backward at each PAD_K3 shape, bf16 and f32: dO zero
+    on the pad heads, so their dq and the dk, dv of KV heads serving only
+    pad heads must be exactly 0; the rest within FA_BWD_TOLERANCE of
+    ``mha_bwd_ref``; the padded shape's ms beside the unpadded shape's."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for h, kv, hp, kvp, dh, window in PAD_K3:
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            rtol, share = FA_BWD_TOLERANCE[dtype_name]
+            g = hp // kvp
+            q, k, v, do = (torch.randn((PAD_BATCH * n, PAD_PROMPT, dh), generator=gen,
+                                       device=dev).to(dtype) for n in (hp, kvp, kvp, hp))
+            pad_q = (torch.arange(PAD_BATCH * hp, device=dev) % hp) >= h
+            pad_kv = (torch.arange(PAD_BATCH * kvp, device=dev) % kvp) * g >= h
+            do[pad_q] = 0
+            out, lse = fa_ops._forward(q, k, v, window, with_lse=True)
+            dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window)
+            want = mha_bwd_ref(q, k, v, out, do, lse, window=window)
+            torch.cuda.synchronize()
+            zero = (bool((dq[pad_q] == 0).all()) and bool((dk[pad_kv] == 0).all())
+                    and bool((dv[pad_kv] == 0).all()))
+            worst = max(float(((a.float() - w.float()).abs()
+                               / (share * w.float().abs().max() + rtol * w.float().abs())).max())
+                        for a, w in zip((dq, dk, dv), want))
+            del want
+            times = {"padded": _fwd_bwd_ms(torch, fa_ops, q, k, v, do, window)}
+            times["unpadded"] = _fwd_bwd_ms(torch, fa_ops, *(
+                torch.randn((PAD_BATCH * n, PAD_PROMPT, dh), generator=gen, device=dev)
+                .to(dtype) for n in (h, kv, kv, h)), window)
+            row = {"phase": "pad-mesh-k3", "heads": [h, hp], "kv_heads": [kv, kvp],
+                   "group": [h // kv, g], "dh": dh, "window": window, "dtype": dtype_name,
+                   "bh": PAD_BATCH * hp, "bkv": PAD_BATCH * kvp, "s": PAD_PROMPT,
+                   "pad_grads_exactly_zero": zero, "worst_to_tolerance": worst,
+                   "fwd_ms": times["padded"][0], "bwd_ms": times["padded"][1],
+                   "unpadded_fwd_ms": times["unpadded"][0],
+                   "unpadded_bwd_ms": times["unpadded"][1],
+                   "padded_over_unpadded": (sum(times["padded"]) / sum(times["unpadded"])),
+                   "fwd_bound_ms": fa_bound(PAD_BATCH * hp, PAD_BATCH * kvp, PAD_PROMPT, dh,
+                                            q.element_size(), window)[0],
+                   "bwd_bound_ms": fa_bwd_bound(PAD_BATCH * hp, PAD_BATCH * kvp, PAD_PROMPT, dh,
+                                                q.element_size(), window)[0],
+                   "heads_ratio": hp / h, "card": smi}
+            row["ok"] = zero and worst <= 1.0
+            emit(row)
+            rows.append(row)
+            del q, k, v, do, out, lse, dq, dk, dv
+            torch.cuda.empty_cache()
+    bad = [(r["heads"], r["kv_heads"], r["dtype"]) for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"pad-mesh-k3: {bad}")
+    return rows
+
+
+def pad_mesh_serve(torch, smi: str) -> dict:
+    """PAD_SERVE at full depth in bf16, served as the serving cells are,
+    beside the unpadded model served the same way just before it; then one
+    micro-batch's prefill of each, timed in turns (unpadded, padded,
+    padded, unpadded) after a warm-up of each."""
+    from repro_torch.configs.base import get_config, pad_for_mesh
+    from repro_torch.models import model as M
+
+    arch, tp, pad_kv = PAD_SERVE
+    base = get_config(arch)
+    cfg = pad_for_mesh(base, tp, pad_kv)
+    models = {"unpadded": (base, serve_params(torch, arch)),
+              "padded": (cfg, M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                                            DEVICE))}
+    rows = {name: phase_serve(torch, smi, params, arch, "flash_attention",
+                              phase="pad-mesh-serve" + ("" if name == "padded" else "-unpadded"),
+                              cfg=c) for name, (c, params) in models.items()}
+    prompts = torch.from_numpy(np.random.default_rng([SEED, 5]).integers(
+        0, base.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(DEVICE)
+    turns = {"unpadded": [], "padded": []}
+    with torch.inference_mode():
+        for c, params in models.values():
+            M.prefill(params, c, prompts)                       # warm-up
+        for name in ("unpadded", "padded", "padded", "unpadded"):
+            c, params = models[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M.prefill(params, c, prompts)
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    del models
+    torch.cuda.empty_cache()
+    u, pd = rows["unpadded"], rows["padded"]
+    out = {"phase": "pad-mesh-serve-vs-unpadded", "arch": arch, "tp": tp, "pad_kv": pad_kv,
+           "heads": [cfg.n_heads, cfg.heads_p], "kv_heads": [cfg.n_kv_heads, cfg.kv_heads_p],
+           "req_per_s": [u["req_per_s"], pd["req_per_s"]],
+           "k3_launches": [u["launches"]["flash_attention"], pd["launches"]["flash_attention"]],
+           "prefill_ms_per_micro_batch": [u["prefill_ms_per_micro_batch"],
+                                          pd["prefill_ms_per_micro_batch"]],
+           "prefill_ms_in_turns": turns,
+           "peak_allocated_bytes": [u["max_memory_allocated_bytes"],
+                                    pd["max_memory_allocated_bytes"]],
+           "mfu": [u["mfu"], pd["mfu"]], "card": smi}
+    emit(out)
+    return out
+
+
+def phase_pad_mesh(torch, smi: str) -> dict:
+    """Mesh padding through the port's entry points (the ``pad-mesh`` phase:
+    PAD_MESH_F32, PAD_K3, PAD_SERVE), and its seconds."""
+    t0 = time.perf_counter()
+    rows = [pad_mesh_model(torch, smi, *case) for case in PAD_MESH_F32]
+    k3 = pad_mesh_k3(torch, smi)
+    serve = pad_mesh_serve(torch, smi)
+    out = {"phase": "pad-mesh-summary", "models": len(rows), "k3_rows": len(k3),
+           "groups_checked": sorted({r["group"][1] for r in k3}),
+           "seconds": time.perf_counter() - t0, "card": smi}
+    emit(out)
+    return {"models": rows, "k3": k3, "serve": serve, **out}
 
 
 def main() -> int:
@@ -3203,6 +3559,7 @@ def main() -> int:
     trained_rg = run("train-recurrentgemma", phase_train_recurrentgemma, torch, smi)
     remat = run("train-remat", phase_train_remat, torch, smi)
     full_depth = run("train-full-depth", phase_train_full_depth, torch, smi, remat)
+    pad_mesh = run("pad-mesh", phase_pad_mesh, torch, smi)
     emit({"phase": "seconds", **seconds})
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -3250,6 +3607,8 @@ def main() -> int:
         "launches_serve_granite": serving["flash_attention_granite"]["launches"][
             "flash_attention"],
         "launches_train_qwen2": trained["launches"]["flash_attention"],
+        # Qwen2-0.5B padded for tp 8 with pad_kv (56 heads over 8 KV heads), served
+        "launches_serve_padded": pad_mesh["serve"]["k3_launches"][1],
         "launches_train_full_depth": {a: r["launches"]["flash_attention"]
                                       for a, r in full_depth.items()},
         **{f"{key}_dh256": rg[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3283,6 +3642,8 @@ def main() -> int:
                             dtype="bfloat16"),
         # RecurrentGemma-2B's training shape (Dh 256) and its training run
         "launches_train_recurrentgemma": trained_rg["launches"]["flash_attention_bwd"],
+        # the head groups of padded heads whose gradients came out exactly 0
+        "pad_mesh_groups_zero": pad_mesh["groups_checked"],
         "launches_train_full_depth": {a: r["launches"]["flash_attention_bwd"]
                                       for a, r in full_depth.items()},
         **{f"{key}_dh256": rg[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",

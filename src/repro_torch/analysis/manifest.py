@@ -156,6 +156,9 @@ DEFAULT_MANIFEST = Manifest(
         # is lock-free: health/breaker/placement decisions are pure
         # functions of the virtual clock and CU completions
         "*/repro_torch/pilot/backends/federated.py",
+        # the analytic roofline and its report: pure functions of their
+        # inputs (records read in sorted order), no clock, no locks
+        "*/repro_torch/roofline/*.py",
     ),
     wall_modules=(
         "*/repro_torch/pilot/backends/local.py",

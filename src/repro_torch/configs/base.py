@@ -1,21 +1,19 @@
 """Model configuration system + architecture registry.
 
-Ports ``repro.configs.base``: the same frozen ``ModelConfig`` (field for
-field but for the mesh-padding ones, so a configuration reads the same in
-both packages) with its helpers (``is_attention_free``,
-``is_subquadratic``, ``supports_shape``, ``param_count``,
-``active_param_count``), the global shape set ``SHAPES``, the registry,
-``get_config``, ``list_configs`` and ``reduced``.  Every registered
-architecture has an exact published ``ModelConfig`` plus a ``reduced()``
-variant for CPU tests.
+Ports ``repro.configs.base``: the same frozen ``ModelConfig``, field for
+field, so a configuration reads the same in both packages, with its helpers
+(``is_attention_free``, ``is_subquadratic``, ``supports_shape``,
+``param_count``, ``active_param_count``), the global shape set ``SHAPES``,
+the registry, ``get_config``, ``list_configs``, ``reduced`` and the mesh
+padding (``pad_for_mesh`` and the padded sizes ``heads_p``, ``kv_heads_p``,
+``vocab_p`` and ``experts_p``).  Every registered architecture has an exact
+published ``ModelConfig`` plus a ``reduced()`` variant for CPU tests.
 
 Every configuration the reference registers is loaded (``_ensure_loaded``):
 the dense ``qwen2-0.5b``, ``qwen2.5-3b``, ``qwen2.5-14b`` and ``glm4-9b``,
 the frontend ``internvl2-1b`` and ``musicgen-medium``, the SSM
 ``mamba2-130m``, the hybrid ``recurrentgemma-2b`` and the MoE
-``granite-moe-3b-a800m`` and ``qwen3-moe-235b-a22b``.  The mesh-padding
-fields (``experts_p`` and the rest) and ``pad_for_mesh`` come with the
-multi-device slice; on one device ``experts_p`` is ``n_experts``.
+``granite-moe-3b-a800m`` and ``qwen3-moe-235b-a22b``.
 """
 
 from __future__ import annotations
@@ -23,7 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 
 __all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "register", "get_config",
-           "list_configs", "reduced"]
+           "list_configs", "reduced", "pad_for_mesh"]
 
 
 @dataclass(frozen=True)
@@ -90,6 +88,15 @@ class ModelConfig:
     scan_layers: bool = True           # (read by the JAX package)
     attn_chunk: int = 1024             # KV-chunk for memory-bounded attention
     loss_chunk: int = 0                # 0 = unchunked vocab loss
+    # --- mesh padding (set by pad_for_mesh; 0 = unpadded) -------------------
+    # dims sharded over a model axis must divide it, so they are padded in
+    # the PARAMETERS and masked inert at run time (zero forward
+    # contribution, zero gradients); the logical architecture's counts
+    # (param_count, active_param_count) are the unpadded ones
+    n_heads_padded: int = 0
+    n_kv_heads_padded: int = 0
+    vocab_padded: int = 0
+    n_experts_padded: int = 0
     # provenance
     source: str = ""
 
@@ -97,6 +104,22 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head or (self.d_model // self.n_heads)
+
+    @property
+    def heads_p(self) -> int:
+        return self.n_heads_padded or self.n_heads
+
+    @property
+    def kv_heads_p(self) -> int:
+        return self.n_kv_heads_padded or self.n_kv_heads
+
+    @property
+    def vocab_p(self) -> int:
+        return self.vocab_padded or self.vocab_size
+
+    @property
+    def experts_p(self) -> int:
+        return self.n_experts_padded or self.n_experts
 
     @property
     def n_groups(self) -> int:
@@ -188,6 +211,40 @@ def reduced(name: str) -> ModelConfig:
 def list_configs() -> list[str]:
     _ensure_loaded()
     return sorted(_REGISTRY)
+
+
+def pad_for_mesh(cfg: ModelConfig, tp: int, pad_kv: bool = False) -> ModelConfig:
+    """Pad the dims sharded over a model axis of ``tp`` up to multiples of it:
+    query heads, vocab and experts; KV heads with the heads where they equal
+    them (MHA), or under ``pad_kv`` (the decode KV-shard policy).
+
+    Under ``pad_kv`` the heads pad to kvp x G with the ORIGINAL group size
+    G, so real query head h keeps its index and its KV head h // G, and the
+    padded KV heads serve only padded query heads.  Otherwise a GQA
+    config's padded heads regroup onto the same KV heads: G becomes
+    ``heads_p // n_kv_heads``, and real head h then reads KV head
+    h // G_padded, as in the reference.  Padded slots are inert (masked in
+    the attention output, the router and the logits), at the cost of idle
+    work on the padded share.  Raises ``ValueError`` where the padded heads
+    do not divide over the KV heads.
+    """
+    def up(n: int, m: int) -> int:
+        return -(-n // m) * m
+
+    hp = up(cfg.n_heads, tp) if cfg.n_heads % tp else cfg.n_heads
+    kvp = cfg.n_kv_heads
+    if cfg.n_kv_heads == cfg.n_heads:          # MHA: pad KV with the heads
+        kvp = hp
+    elif pad_kv and cfg.n_kv_heads % tp:
+        kvp = up(cfg.n_kv_heads, tp)
+        hp = kvp * (cfg.n_heads // cfg.n_kv_heads)
+    elif hp % cfg.n_kv_heads:
+        raise ValueError(f"{cfg.name}: padded heads {hp} not divisible by "
+                         f"kv heads {cfg.n_kv_heads}")
+    vp = up(cfg.vocab_size, tp) if cfg.vocab_size % tp else cfg.vocab_size
+    ep = up(cfg.n_experts, tp) if cfg.n_experts and cfg.n_experts % tp else cfg.n_experts
+    return replace(cfg, n_heads_padded=hp, n_kv_heads_padded=kvp,
+                   vocab_padded=vp, n_experts_padded=ep)
 
 
 def _ensure_loaded() -> None:

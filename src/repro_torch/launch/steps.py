@@ -6,7 +6,7 @@ its inputs computed on PyTorch's ``meta`` device (shapes and dtypes, no
 allocation, no weights drawn) in place of the reference's
 ``ShapeDtypeStruct``s.  The mesh form (shardings, ZeRO moments, batch
 replication), ``build_prefill``, ``build_decode`` and ``build_cell`` come
-with the multi-device slice (ROADMAP queue 1, item 9).
+with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def build_train(cfg, shape, mesh=None, *, device="cuda", n_microbatches: int = 1
     ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError("build_train on a device mesh comes with the "
-                                  "multi-device slice (ROADMAP queue 1, item 9)")
+                                  "multi-device slice")
     resolve_device(device)
     if shape.global_batch % n_microbatches:
         raise ValueError(f"batch {shape.global_batch} not divisible by {n_microbatches} "

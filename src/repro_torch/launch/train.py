@@ -8,7 +8,7 @@ data is a pure function of the step).  Weights are random, drawn from
 its backward kernels, at every head dim the configs use (64, 128 and
 RecurrentGemma-2B's 256), and every Mamba-2 layer kernel K4 forward
 (keeping its span states) and its backward kernels.  ``--mesh`` is
-refused: the multi-device slice is ROADMAP queue 1, item 9.
+refused until the multi-device slice.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --reduced \\
         --device cpu --steps 20 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt

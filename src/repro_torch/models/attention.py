@@ -20,8 +20,16 @@ Execution paths sharing one set of weights:
 Local attention (``window > 0``, the ``local_attn`` block): query ``qpos``
 sees key ``kpos`` iff ``qpos - window < kpos <= qpos``, in K3 as in the
 plain versions, and the decode cache is a ring of ``min(window, max_seq)``
-slots in which position ``p`` lives at slot ``p % S``.  Mesh-padding heads
-(the reference's ``_head_mask``) come with the multi-device slice.
+slots in which position ``p`` lives at slot ``p % S``.
+
+Mesh padding (``configs.base.pad_for_mesh``): weights and caches hold
+``heads_p`` query and ``kv_heads_p`` KV heads, query head h reads KV head
+h // (heads_p // kv_heads_p), and the padded heads' outputs are zeroed
+before the output projection (``_head_mask``, as the reference masks them
+after its attention), so they add nothing and get zero gradients.  The
+padded heads still run through K3 and its backward: idle work on the
+padded share, as in the reference.  ``attention_specs`` and ``cache_specs``
+give the reference's logical sharding axes of each tree.
 """
 
 from __future__ import annotations
@@ -33,8 +41,8 @@ import torch
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init, param_dict
 
-__all__ = ["NEG_INF", "attention_init", "attend", "attend_full", "init_cache",
-           "decode_step", "prefill_into_cache"]
+__all__ = ["NEG_INF", "attention_init", "attention_specs", "attend", "attend_full",
+           "init_cache", "cache_specs", "decode_step", "prefill_into_cache"]
 
 NEG_INF = -1e30
 
@@ -43,7 +51,7 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 def attention_init(gen, cfg, dtype, device):
-    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    d, h, kv, dh = cfg.d_model, cfg.heads_p, cfg.kv_heads_p, cfg.head_dim
     p = {
         "wq": dense_init(gen, (d, h, dh), d, dtype, device),
         "wk": dense_init(gen, (d, kv, dh), d, dtype, device),
@@ -55,6 +63,16 @@ def attention_init(gen, cfg, dtype, device):
         p["bk"] = torch.zeros((kv, dh), dtype=dtype, device=device)
         p["bv"] = torch.zeros((kv, dh), dtype=dtype, device=device)
     return param_dict(p)
+
+
+def attention_specs(cfg):
+    p = {"wq": (None, "heads", None), "wk": (None, "kv_heads", None),
+         "wv": (None, "kv_heads", None), "wo": ("heads", None, None)}
+    if cfg.qkv_bias:
+        p["bq"] = ("heads", None)
+        p["bk"] = ("kv_heads", None)
+        p["bv"] = ("kv_heads", None)
+    return p
 
 
 def _project_qkv(p, cfg, x, positions):
@@ -71,15 +89,25 @@ def _project_qkv(p, cfg, x, positions):
 
 
 def _repeat_kv(t, cfg):
-    """(B, S, KV, Dh) -> (B, S, H, Dh)."""
-    g = cfg.n_heads // cfg.n_kv_heads
+    """(B, S, KVp, Dh) -> (B, S, Hp, Dh)."""
+    g = cfg.heads_p // cfg.kv_heads_p
     if g == 1:
         return t
     return torch.repeat_interleave(t, g, dim=2)
 
 
-def _out_proj(p, ctx, x_dtype):
-    """ctx (B, S, H, Dh) -> (B, S, d)."""
+def _head_mask(cfg, dtype, device):
+    """1 for real heads, 0 for mesh-padding heads (Hp,); None unpadded."""
+    if cfg.heads_p == cfg.n_heads:
+        return None
+    return (torch.arange(cfg.heads_p, device=device) < cfg.n_heads).to(dtype)
+
+
+def _out_proj(p, cfg, ctx, x_dtype):
+    """ctx (B, S, Hp, Dh) -> (B, S, d), the padded heads masked out."""
+    mask = _head_mask(cfg, ctx.dtype, ctx.device)
+    if mask is not None:
+        ctx = ctx * mask[:, None]
     return torch.einsum("bshk,hkd->bsd", ctx.to(x_dtype), p["wo"])
 
 
@@ -90,15 +118,16 @@ def _out_proj(p, ctx, x_dtype):
 def attend(p, cfg, x, positions, window: int = 0):
     """Causal attention of a prompt: x (B, S, d) at positions 0..S-1 (the
     kernel masks by index; ``positions`` feed the rotary embedding), local
-    with ``window`` > 0.  Returns (out (B, S, d), (k, v) each (B, S, KV, Dh))."""
+    with ``window`` > 0.  Returns (out (B, S, d), (k, v) each (B, S, KVp, Dh)).
+    Padded heads go through K3 and are masked after it."""
     B, S, _ = x.shape
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, KV, Dh = cfg.heads_p, cfg.kv_heads_p, cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x, positions)
     qr = q.transpose(1, 2).contiguous().view(B * H, S, Dh)            # row b*H + h
     kr = k.transpose(1, 2).contiguous().view(B * KV, S, Dh)           # row b*KV + h//G
     vr = v.transpose(1, 2).contiguous().view(B * KV, S, Dh)
     ctx = flash_attention(qr, kr, vr, window=window).view(B, H, S, Dh).transpose(1, 2)
-    return _out_proj(p, ctx, x.dtype), (k, v)
+    return _out_proj(p, cfg, ctx, x.dtype), (k, v)
 
 
 def attend_full(p, cfg, x, positions, window: int = 0):
@@ -117,7 +146,7 @@ def attend_full(p, cfg, x, positions, window: int = 0):
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bhqs,bshk->bqhk", probs, vh)
-    return _out_proj(p, ctx, x.dtype), (k, v)
+    return _out_proj(p, cfg, ctx, x.dtype), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -128,9 +157,17 @@ def init_cache(cfg, batch, max_seq, window: int = 0, dtype=torch.bfloat16, *,
                device):
     """K/V of ``max_seq`` slots, or a ring of ``min(window, max_seq)``."""
     S = min(window, max_seq) if window else max_seq
-    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    kv, dh = cfg.kv_heads_p, cfg.head_dim
     return {"k": torch.zeros((batch, S, kv, dh), dtype=dtype, device=device),
             "v": torch.zeros((batch, S, kv, dh), dtype=dtype, device=device)}
+
+
+def cache_specs(window: int = 0):
+    # a ring (local attention) is small: its slots stay unsharded; a full
+    # cache shards its sequence over the model axis (split-KV decode)
+    seq_axis = None if window else "kv_seq"
+    return {"k": ("batch", seq_axis, "kv_heads", None),
+            "v": ("batch", seq_axis, "kv_heads", None)}
 
 
 def decode_step(p, cfg, x, cache, pos: int, window: int = 0):
@@ -139,7 +176,7 @@ def decode_step(p, cfg, x, cache, pos: int, window: int = 0):
     a ring) and attends over the slots that hold a position.  Returns
     (out (B, 1, d), cache)."""
     B = x.shape[0]
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, KV, Dh = cfg.heads_p, cfg.kv_heads_p, cfg.head_dim
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
     S = cache["k"].shape[1]
@@ -158,7 +195,7 @@ def decode_step(p, cfg, x, cache, pos: int, window: int = 0):
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
     probs = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bkgt,btkd->bkgd", probs, v).reshape(B, 1, H, Dh)
-    return _out_proj(p, ctx, x.dtype), cache
+    return _out_proj(p, cfg, ctx, x.dtype), cache
 
 
 def prefill_into_cache(p, cfg, x, positions, cache, window: int = 0):

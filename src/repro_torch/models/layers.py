@@ -6,7 +6,10 @@ Ports ``repro.models.layers``.  Parameters keep the reference's layouts
 weight converts from the JAX package by a copy, with no transpose.  The
 reference's sharding ``constrain`` calls are dropped: this is one device.
 Initialisers draw from an explicit ``torch.Generator``: the same
-distributions as the reference, not its bits.
+distributions as the reference, not its bits.  ``norm_specs``,
+``mlp_specs`` and ``embedding_specs`` return the reference's trees of
+logical sharding axes (tuples) for the norm, MLP and embedding parameters:
+plain data for the rule tables of the multi-device slice.
 """
 
 from __future__ import annotations
@@ -17,9 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["dense_init", "embed_init", "norm_init", "apply_norm",
-           "rope_frequencies", "apply_rope", "sinusoidal_pos_emb", "mlp_init",
-           "apply_mlp", "embedding_init", "embed_tokens", "logits_head", "param_dict"]
+__all__ = ["dense_init", "embed_init", "norm_init", "norm_specs", "apply_norm",
+           "rope_frequencies", "apply_rope", "sinusoidal_pos_emb", "mlp_init", "mlp_specs",
+           "apply_mlp", "embedding_init", "embedding_specs", "embed_tokens", "logits_head",
+           "param_dict"]
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +65,13 @@ def norm_init(d, norm_type, dtype, device):
     if norm_type == "layer":
         p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
     return param_dict(p)
+
+
+def norm_specs(norm_type):
+    p = {"scale": ("embed",)}
+    if norm_type == "layer":
+        p["bias"] = ("embed",)
+    return p
 
 
 def apply_norm(p, x, norm_type, eps):
@@ -123,6 +134,12 @@ def mlp_init(gen, cfg, dtype, device):
                        "w_down": dense_init(gen, (f, d), f, dtype, device)})
 
 
+def mlp_specs(cfg):
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {"w_gate": (None, "ff"), "w_up": (None, "ff"), "w_down": ("ff", None)}
+    return {"w_up": (None, "ff"), "w_down": ("ff", None)}
+
+
 def apply_mlp(p, cfg, x):
     if cfg.mlp_type in ("swiglu", "geglu"):
         # jax.nn.gelu's default is the tanh approximation
@@ -139,11 +156,21 @@ def apply_mlp(p, cfg, x):
 # ---------------------------------------------------------------------------
 
 def embedding_init(gen, cfg, dtype, device):
-    p = {"tokens": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device)}
+    """The token table (Vp, d) and, untied, the head (d, Vp): ``vocab_p``
+    rows and columns, the mesh-padding ones never read by a token and
+    masked out of the logits."""
+    p = {"tokens": embed_init(gen, (cfg.vocab_p, cfg.d_model), dtype, device)}
     if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, dtype,
-                               device)
+        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_p), cfg.d_model, dtype, device)
     return param_dict(p)
+
+
+def embedding_specs(cfg):
+    # a tied table stays vocab-sharded (the logits product dominates); an
+    # untied input table shards d_model instead, so its gather is local
+    if cfg.tie_embeddings:
+        return {"tokens": ("vocab", "embed")}
+    return {"tokens": (None, "embed_tbl"), "head": ("embed", "vocab")}
 
 
 def embed_tokens(p, tokens):
@@ -151,9 +178,10 @@ def embed_tokens(p, tokens):
 
 
 def logits_head(p, cfg, x):
-    """x (..., d) -> float32 logits (..., V): the tied embedding (or the
-    untied head) and an optional soft cap.  (Masking mesh-padding vocab rows
-    comes with the multi-device slice.)"""
+    """x (..., d) -> float32 logits (..., Vp): the tied embedding (or the
+    untied head), an optional soft cap, then the mesh-padding columns set
+    to -1e30 in f32, so the softmax gives them exactly 0 (and they get zero
+    gradients)."""
     if cfg.tie_embeddings:
         logits = x @ p["tokens"].T
     else:
@@ -161,4 +189,8 @@ def logits_head(p, cfg, x):
     if cfg.logits_soft_cap > 0:
         cap = cfg.logits_soft_cap
         logits = cap * torch.tanh(logits.float() / cap)
-    return logits.float()
+    logits = logits.float()
+    if cfg.vocab_p != cfg.vocab_size:
+        pad = torch.arange(cfg.vocab_p, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits

@@ -16,6 +16,18 @@ embeddings that replace the token embeddings of the first P <= S
 positions of a config with a ``frontend``.  Sinusoidal positions are added
 to the input embeddings in prefill and decode.
 
+``param_specs`` and ``cache_specs`` return the reference's trees of
+logical sharding axes (plain data, resolved by the rule tables of the
+multi-device slice).  They follow the reference's stacked layout: the spec
+of the port's layer ``g · len(block_pattern) + i`` is
+``["stack"]["groups"]["b{i}_{kind}"]`` with its leading (layer) axis
+dropped, and tail layer ``i``'s is ``["stack"]["tail"][i]``.
+
+Mesh padding: a config from ``configs.base.pad_for_mesh`` draws its
+parameters at the padded sizes (``heads_p``, ``kv_heads_p``, ``vocab_p``,
+``experts_p``), and ``params_from_numpy`` takes the reference's padded
+tree as it is.
+
 ``loss_fn`` is the training objective (reference ``model.py:76``):
 next-token NLL, the frontend's prefix positions masked out, differentiable
 through every layer; on the card its attention runs kernel K3 forward and
@@ -31,11 +43,12 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (apply_norm, embed_tokens, embedding_init,
-                                       logits_head, norm_init, param_dict,
-                                       sinusoidal_pos_emb)
+                                       embedding_specs, logits_head, norm_init, norm_specs,
+                                       param_dict, sinusoidal_pos_emb)
 
-__all__ = ["init_params", "params_from_numpy", "forward", "loss_fn", "cache_init",
-           "prefill", "decode_step", "decode_greedy", "greedy_generate"]
+__all__ = ["init_params", "param_specs", "params_from_numpy", "forward", "loss_fn",
+           "cache_init", "cache_specs", "prefill", "decode_step", "decode_greedy",
+           "greedy_generate"]
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -52,6 +65,11 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> nn.ModuleDict
         "stack": tf.stack_init(generator, cfg, dtype, dev),
         "final_norm": norm_init(cfg.d_model, cfg.norm_type, dtype, dev),
     })
+
+
+def param_specs(cfg) -> dict:
+    return {"embedding": embedding_specs(cfg), "stack": tf.stack_specs(cfg),
+            "final_norm": norm_specs(cfg.norm_type)}
 
 
 def params_from_numpy(cfg, tree, device="cuda") -> nn.ModuleDict:
@@ -169,6 +187,10 @@ def cache_init(cfg, batch, cache_len, dtype=None, device="cuda"):
     """Empty per-layer K/V caches of ``cache_len`` slots on ``device``."""
     return tf.stack_cache_init(cfg, batch, cache_len, dtype or _dtype(cfg),
                                device=resolve_device(device))
+
+
+def cache_specs(cfg) -> dict:
+    return tf.stack_cache_specs(cfg)
 
 
 def prefill(params, cfg, tokens: torch.Tensor, cache_len: int | None = None,

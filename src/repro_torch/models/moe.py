@@ -20,10 +20,18 @@ combine gathers each token's k rows and sums them in rank order j = 0..k-1
 instead of the reference's scatter-add (the same terms in another order).
 No atomics, so a rematerialised layer recomputes the same bits.
 
+Mesh-padding experts (``experts_p`` > ``n_experts``, set by
+``configs.base.pad_for_mesh``): the router and the expert weights hold
+``experts_p`` of them, the router's padded columns are set to -1e30 before
+the softmax so no token is routed to one, the slot table spans
+``experts_p · C`` slots (the padded experts' rows stay empty) and only the
+``n_experts`` real experts run their FFN, as in the reference's one-device
+path.  The padded experts' weights and router columns get zero
+gradients.
+
 ``apply_moe`` is ``apply_moe_local``: the reference's ``shard_map`` expert
 parallelism (all-gather / psum-scatter and the all-to-all dispatch) comes
-with the multi-device slice, and so do the mesh-padding experts
-(``experts_p``; here ``experts_p == n_experts``).
+with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -35,19 +43,29 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, param_dict
 
-__all__ = ["moe_init", "apply_moe", "apply_moe_local", "apply_moe_ref", "moe_capacity"]
+__all__ = ["moe_init", "moe_specs", "apply_moe", "apply_moe_local", "apply_moe_ref",
+           "moe_capacity"]
 
 
 def moe_init(gen, cfg, dtype, device):
-    """Router (d, E) in float32 in every model dtype; experts (E, d, f) and
-    (E, f, d)."""
-    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    """Router (d, Ep) in float32 in every model dtype; experts (Ep, d, f) and
+    (Ep, f, d)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.experts_p
     return param_dict({
         "router": dense_init(gen, (d, E), d, torch.float32, device),
         "w_gate": dense_init(gen, (E, d, f), d, dtype, device),
         "w_up": dense_init(gen, (E, d, f), d, dtype, device),
         "w_down": dense_init(gen, (E, f, d), f, dtype, device),
     })
+
+
+def moe_specs(cfg):
+    # expert weights shard over the data axis ("fsdp") as well as expert
+    # parallelism, gathered a layer at a time inside the expert-parallel map
+    return {"router": (None, None),
+            "w_gate": ("experts", "fsdp", None),
+            "w_up": ("experts", "fsdp", None),
+            "w_down": ("experts", "fsdp", None)}
 
 
 def moe_capacity(cfg, seq_len: int) -> int:
@@ -61,13 +79,17 @@ def moe_capacity(cfg, seq_len: int) -> int:
 # ---------------------------------------------------------------------------
 
 def _route(cfg, x, router, capacity):
-    """x (B, S, d) -> gates gk (B, S, k) f32, slot (B, S, k) in [0, E·C]
-    (E·C = dropped), slot_token (B, E·C + 1) the token index per slot (S =
-    empty), and the full softmax gates (B, S, E)."""
+    """x (B, S, d) -> gates gk (B, S, k) f32, slot (B, S, k) in [0, Ep·C]
+    (Ep·C = dropped), slot_token (B, Ep·C + 1) the token index per slot (S =
+    empty), and the full softmax gates (B, S, Ep), exactly 0 on the
+    mesh-padding experts."""
     B, S, _ = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
-    C = capacity
-    logits = x.float() @ router                                      # (B, S, E)
+    C, Etab = capacity, cfg.experts_p
+    logits = x.float() @ router                                      # (B, S, Ep)
+    if router.shape[1] != E:
+        pad = torch.arange(router.shape[1], device=x.device) >= E
+        logits = logits.masked_fill(pad, -1e30)
     gates_full = torch.softmax(logits, dim=-1)
     gk, ik = torch.topk(gates_full, k, dim=-1)                       # (B, S, k)
     gk = gk / gk.sum(dim=-1, keepdim=True).clamp_min(1e-9)
@@ -79,15 +101,15 @@ def _route(cfg, x, router, capacity):
     oh = F.one_hot(order, E)                                         # (B, k·S, E) int64
     earlier = (torch.cumsum(oh, dim=1) - oh).gather(2, order[..., None])[..., 0]
     pos = earlier.view(B, k, S).transpose(1, 2)                      # (B, S, k)
-    slot = torch.where(pos >= C, E * C, ik * C + pos)                # (B, S, k)
+    slot = torch.where(pos >= C, Etab * C, ik * C + pos)             # (B, S, k)
     # invert slot -> token: kept slots are distinct, dropped choices spill
     # past the table and are cut off
-    dest = _spill_dest(slot, E * C)
+    dest = _spill_dest(slot, Etab * C)
     n = dest.shape[1]
     token_ids = torch.arange(S, device=x.device).repeat_interleave(k).expand(B, n)
-    table = torch.full((B, E * C + 1 + n), S, dtype=torch.int64, device=x.device)
+    table = torch.full((B, Etab * C + 1 + n), S, dtype=torch.int64, device=x.device)
     table.scatter_(1, dest, token_ids)
-    return gk, slot, table[:, :E * C + 1], gates_full
+    return gk, slot, table[:, :Etab * C + 1], gates_full
 
 
 def _spill_dest(slot, n_slots):
@@ -119,14 +141,16 @@ def _expert_ffn(w_gate, w_up, w_down, xin):
     return torch.einsum("becf,efd->becd", h, w_down)
 
 
-def _combine(h, valid, slot, gk):
+def _combine(h, valid, slot, gk, n_slots):
     """Each token's k expert rows of h (B, E·C, d), weighted by ``gk`` and
-    summed in rank order; a dropped choice (slot E·C) reads a zero row."""
+    summed in rank order; a dropped choice (slot ``n_slots`` = Ep·C) reads
+    a zero row."""
     B, S, k = slot.shape
     d = h.shape[-1]
     zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    rest = n_slots + 1 - h.shape[1]              # the padded experts' and the drop row
     hz = torch.cat([torch.where(valid[..., None], h, zero),
-                    torch.zeros((B, 1, d), dtype=h.dtype, device=h.device)], dim=1)
+                    torch.zeros((B, rest, d), dtype=h.dtype, device=h.device)], dim=1)
     rows = torch.gather(hz, 1, slot.reshape(B, S * k, 1).expand(B, S * k, d))
     weighted = rows.view(B, S, k, d) * gk[..., None].to(h.dtype)
     out = weighted[:, :, 0].float()
@@ -135,15 +159,24 @@ def _combine(h, valid, slot, gk):
     return out
 
 
+def _first(t, n: int, dim: int = 0):
+    """The first ``n`` entries of ``t`` along ``dim`` (the real experts'),
+    ``t`` itself where it holds no more: no op on an unpadded config."""
+    return t if t.shape[dim] == n else t.narrow(dim, 0, n)
+
+
 def _moe_core(cfg, p, x, capacity):
-    """The MoE math for all E experts; x (B, S, d) full sequence."""
+    """The MoE math for the E real experts (the padded ones' slots are
+    empty and skipped); x (B, S, d) full sequence."""
     B, S, d = x.shape
     E, C = cfg.n_experts, capacity
+    n_slots = cfg.experts_p * C
     gk, slot, slot_token, _ = _route(cfg, x, p["router"], C)
-    xin = _dispatch(x, slot, E * C)
+    xin = _first(_dispatch(x, slot, n_slots), E * C, dim=1)
     valid = slot_token[:, :E * C] < S
-    h = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], xin.view(B, E, C, d))
-    return _combine(h.reshape(B, E * C, d), valid, slot, gk)
+    h = _expert_ffn(*(_first(p[w], E) for w in ("w_gate", "w_up", "w_down")),
+                    xin.view(B, E, C, d))
+    return _combine(h.reshape(B, E * C, d), valid, slot, gk, n_slots)
 
 
 def apply_moe_local(p, cfg, x, capacity=None):

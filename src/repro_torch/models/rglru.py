@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, param_dict
 
-__all__ = ["rglru_init", "apply_rglru", "rglru_cache_init", "rglru_decode_step"]
+__all__ = ["rglru_init", "rglru_specs", "apply_rglru", "rglru_cache_init",
+           "rglru_cache_specs", "rglru_decode_step"]
 
 _C = 8.0  # Griffin's fixed recurrence sharpness
 
@@ -57,6 +58,14 @@ def rglru_init(gen, cfg, dtype, device):
         "lam": lam.to(device),
         "w_out": dense_init(gen, (w, d), w, dtype, device),
     })
+
+
+def rglru_specs(cfg):
+    return {"w_x": (None, "lru"), "w_gate": (None, "lru"),
+            "conv_w": (None, "lru"), "conv_b": ("lru",),
+            "w_a": (None, "lru"), "b_a": ("lru",),
+            "w_i": (None, "lru"), "b_i": ("lru",),
+            "lam": ("lru",), "w_out": ("lru", None)}
 
 
 def _conv(x, conv_w, conv_b, state=None):
@@ -127,6 +136,10 @@ def rglru_cache_init(cfg, batch, dtype=torch.float32, *, device):
     w = _width(cfg)
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, 3, w), dtype=dtype, device=device)}
+
+
+def rglru_cache_specs(cfg):
+    return {"h": ("batch", "lru"), "conv": ("batch", None, "lru")}
 
 
 def rglru_decode_step(p, cfg, u, cache):

@@ -26,8 +26,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan.ops import chunk_length, ssd_scan
 from repro_torch.models.layers import dense_init, param_dict
 
-__all__ = ["ssm_init", "apply_ssm", "ssm_cache_init", "ssm_decode_step",
-           "ssd_chunked", "ssd_recurrent"]
+__all__ = ["ssm_init", "ssm_specs", "apply_ssm", "ssm_cache_init", "ssm_cache_specs",
+           "ssm_decode_step", "ssd_chunked", "ssd_recurrent"]
 
 
 def _dims(cfg):
@@ -61,6 +61,14 @@ def ssm_init(gen, cfg, dtype, device):
         "out": dense_init(gen, (di, d), di, dtype, device),
     })
     return param_dict(p)
+
+
+def ssm_specs(cfg):
+    return {"in_z": (None, "ssm_inner"), "in_x": (None, "ssm_inner"),
+            "in_B": (None, None), "in_C": (None, None),
+            "in_dt": (None, None), "conv_w": (None, None), "conv_b": (None,),
+            "A_log": (None,), "D": (None,), "dt_bias": (None,),
+            "norm_scale": ("ssm_inner",), "out": ("ssm_inner", None)}
 
 
 def _causal_conv(xbc, conv_w, conv_b, conv_state=None):
@@ -203,6 +211,10 @@ def ssm_cache_init(cfg, batch, dtype=torch.float32, *, device):
                              device=device),
             "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
                                 device=device)}
+
+
+def ssm_cache_specs(cfg):
+    return {"h": ("batch", None, None, None), "conv": ("batch", None, None)}
 
 
 def ssm_decode_step(p, cfg, x, cache):

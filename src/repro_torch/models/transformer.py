@@ -30,6 +30,14 @@ Caches are a list with one dict per layer, ``{"k", "v"}`` for the
 attention kinds (a ring of ``min(local_window, cache_len)`` slots for
 ``local_attn``) and ``{"h", "conv"}`` for ``ssm`` and ``rglru``, updated
 in place.
+
+The ``*_specs`` helpers return the reference's logical-axis trees
+unchanged: ``stack_specs`` and ``stack_cache_specs`` give ``{"groups":
+{"b{i}_{kind}": ...}, "tail": [...]}`` with a leading unsharded layer axis
+on every ``groups`` spec (the reference stacks a group's layers along it).
+Layer ``g · len(block_pattern) + i`` of the port's list takes the spec of
+``groups["b{i}_{kind}"]`` with that leading axis dropped; tail layer ``i``
+takes ``tail[i]``.
 """
 
 from __future__ import annotations
@@ -45,10 +53,12 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import apply_mlp, apply_norm, mlp_init, norm_init
+from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_init, mlp_specs,
+                                       norm_init, norm_specs)
 
-__all__ = ["Block", "block_init", "apply_block", "block_cache_init", "decode_block",
-           "stack_init", "apply_stack", "stack_cache_init", "decode_stack"]
+__all__ = ["Block", "block_init", "block_specs", "apply_block", "block_cache_init",
+           "block_cache_specs", "decode_block", "stack_init", "stack_specs", "apply_stack",
+           "stack_cache_init", "stack_cache_specs", "decode_stack"]
 
 _ATTN_KINDS = ("attn", "local_attn", "moe")
 _KINDS = _ATTN_KINDS + ("ssm", "rglru")
@@ -106,6 +116,21 @@ def block_init(gen, cfg, kind, dtype, device) -> Block:
     })
 
 
+def block_specs(cfg, kind):
+    _check_kind(kind)
+    p = {"norm1": norm_specs(cfg.norm_type)}
+    if kind == "ssm":
+        p["ssm"] = ssm_mod.ssm_specs(cfg)
+        return p
+    if kind == "rglru":
+        p["rec"] = rglru_mod.rglru_specs(cfg)
+    else:
+        p["attn"] = attn_mod.attention_specs(cfg)
+    p["norm2"] = norm_specs(cfg.norm_type)
+    p["ffn"] = moe_mod.moe_specs(cfg) if kind == "moe" else mlp_specs(cfg)
+    return p
+
+
 def apply_block(p, cfg, kind, x, positions, cache=None):
     """Prefill/forward of one block.  Returns (x, cache_or_None); with a
     cache, the prompt's K/V (attention kinds) or final state and conv
@@ -147,6 +172,15 @@ def block_cache_init(cfg, kind, batch, cache_len, dtype=torch.bfloat16, *, devic
                                device=device)
 
 
+def block_cache_specs(cfg, kind):
+    _check_kind(kind)
+    if kind == "ssm":
+        return ssm_mod.ssm_cache_specs(cfg)
+    if kind == "rglru":
+        return rglru_mod.rglru_cache_specs(cfg)
+    return attn_mod.cache_specs(_window(cfg, kind))
+
+
 def decode_block(p, cfg, kind, x, cache, pos: int):
     """One-token decode.  x (B, 1, d); returns (x, cache) with the cache
     updated in place."""
@@ -172,6 +206,23 @@ def decode_block(p, cfg, kind, x, cache, pos: int):
 def stack_init(gen, cfg, dtype, device) -> nn.ModuleList:
     return nn.ModuleList(block_init(gen, cfg, kind, dtype, device)
                          for kind in cfg.layer_kinds)
+
+
+def _stacked(spec):
+    """A group's spec tree with the leading (unsharded) layer axis added."""
+    if isinstance(spec, dict):
+        return {k: _stacked(v) for k, v in spec.items()}
+    return (None,) + tuple(spec)
+
+
+def _group_specs(cfg, specs_of):
+    groups = {f"b{i}_{kind}": _stacked(specs_of(cfg, kind))
+              for i, kind in enumerate(cfg.block_pattern)}
+    return {"groups": groups, "tail": [specs_of(cfg, kind) for kind in cfg.tail_pattern]}
+
+
+def stack_specs(cfg):
+    return _group_specs(cfg, block_specs)
 
 
 _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -223,6 +274,10 @@ def apply_stack(stack, cfg, x, positions, caches=None):
 def stack_cache_init(cfg, batch, cache_len, dtype=torch.bfloat16, *, device):
     return [block_cache_init(cfg, kind, batch, cache_len, dtype, device=device)
             for kind in cfg.layer_kinds]
+
+
+def stack_cache_specs(cfg):
+    return _group_specs(cfg, block_cache_specs)
 
 
 def decode_stack(stack, cfg, x, caches, pos: int):

@@ -17,7 +17,7 @@ Unlike the reference's pure update, ``adamw_step`` writes the new
 parameters and moments IN PLACE (under ``torch.no_grad``): a full-width
 model then holds one copy of each.  It returns the parameters, the new
 state and the reference's metrics.  The reference's ZeRO sharding of the
-moments comes with the multi-device slice (ROADMAP queue 1, item 9).
+moments comes with the multi-device slice.
 """
 
 from __future__ import annotations

@@ -174,8 +174,8 @@ CONFIG_CASES = [pytest.param(ARCH, small, id=kind)
 
 @pytest.mark.parametrize("arch,small", CONFIG_CASES)
 def test_config_is_the_references(arch, small):
-    """Every field the port's config has equals the reference's, and the
-    reference leaves its mesh padding (not ported yet) unset."""
+    """Every field the port's config has equals the reference's, and a
+    registered config leaves its mesh padding unset."""
     want, got = jax_get_config(arch, reduced=small), get_config(arch, reduced=small)
     for f in dataclasses.fields(got):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
