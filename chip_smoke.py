@@ -200,10 +200,24 @@ microbatch and its backward once; ``forward_launches``);
   every pad slot (K3 and its backward at G 7, 8, 10 and 16, Dh 64 and
   256); K3 forward and backward at those head groups in bf16 and f32 with
   dO zero on the pad heads (their dq and the dk, dv of KV heads serving
-  only them exactly 0), ms beside the unpadded shape's; Qwen2-0.5B padded
+  only them exactly 0), ms beside the unpadded shape's, the plain
+  versions' and SDPA's (the faster of ``enable_gqa`` and repeated KV
+  heads); Qwen2-0.5B padded
   for tp 8 with ``pad_kv`` (56 heads over 8) served at full depth in bf16
   beside the unpadded model (req/s, K3's launches, peak bytes, and one
   micro-batch's prefill in turns), with the phase's seconds;
+* ``mesh-one`` — the port's mesh path (``distributed.sharding``,
+  ``launch.mesh``, ``launch.steps.build_cell``) on the card as a world of
+  one: first what this torch offers (DeviceMesh, DTensor, ``local_map``,
+  implicit replication, nccl), then an nccl process group of one rank in
+  this process and a (1, 1) ("data", "model") mesh; 3 training steps of 4
+  x 1,024 tokens under ``default`` and ``fsdp`` for Qwen2-0.5B and
+  Mamba2-130M at full depth and RecurrentGemma-2B at 11 layers (bf16,
+  weights from SEED), and Qwen2-0.5B's prefill of 4 x 1,024 tokens and 8
+  decode steps: losses, every parameter and moment, logits and caches
+  ``torch.equal`` to the one-device path on the same weights and batches,
+  K3's, K3's backward's, K4's and K4's backward's launches equal to its;
+  ms a step and tok/s on the mesh and on one device, and the seconds;
 
 the serve phases, ``train-qwen2``, ``train-mamba2`` and ``train-full-depth``
 also print ``mfu``: ``roofline.analysis.model_flops`` (6·N·D a training
@@ -501,6 +515,17 @@ PAD_SERVE = (DENSE_ARCH, 8, True)
 # KV heads, padded heads, padded KV heads, Dh, window), B = PAD_BATCH
 PAD_K3 = [(14, 2, 16, 2, 64, 0), (14, 2, 56, 8, 64, 0),
           (10, 1, 16, 1, 256, 2_048), (10, 1, 80, 8, 256, 2_048)]
+# mesh-one: the port's mesh path (launch.steps.build_cell) on a world of one
+# (nccl, a (1, 1) ("data", "model") mesh) at published width in bf16, weights
+# from SEED: MESH_STEPS training steps of MESH_BATCH x MESH_SEQ tokens under
+# each of MESH_POLICIES for each MESH_ARCHS config at its layers (0: full
+# depth), then Qwen2-0.5B's prefill of MESH_BATCH x MESH_SEQ tokens and
+# MESH_DECODE decode steps; each torch.equal to the one-device path on the
+# same weights and batches, with the same kernel launches
+MESH_ARCHS = {DENSE_ARCH: 0, SSM_ARCH: 0, HYBRID_ARCH: 11}   # RG: 3 groups and the tail
+MESH_POLICIES = ("default", "fsdp")
+MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_DECODE = 4, 1_024, 3, 8
+MESH_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 # mfu: model_flops (6·N·D training, 2·N·D a forward token; N the logical
 # parameters) over the seconds at the bf16 peak
 MFU_NOTE = "6·N·D (2·N·D serving) leaves out attention's score FLOPs"
@@ -3337,13 +3362,46 @@ def _fwd_bwd_ms(torch, fa_ops, q, k, v, do, window: int) -> tuple[float, float]:
                     iters=10))
 
 
+def _sdpa_fwd_bwd_ms(torch, q, k, v, do, window: int, heads: int) -> dict:
+    """SDPA forward and backward (``torch.autograd.grad`` on a kept graph)
+    at K3's operands viewed (B, H, S, Dh), given the KV heads two ways:
+    ``enable_gqa`` and repeated to one a query head; ms of each and the
+    faster single call's."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s, dh = q.shape[1:]
+    q4, do4 = (t.view(-1, heads, s, dh) for t in (q, do))
+    k4, v4 = (t.view(q4.shape[0], -1, s, dh) for t in (k, v))
+    g = heads // k4.shape[1]
+    kw = {"is_causal": True}
+    if 0 < window < s:
+        idx = torch.arange(s, device=q.device)
+        kw = {"attn_mask": (idx[None, :] <= idx[:, None])
+                           & (idx[None, :] > idx[:, None] - window)}
+    out = {}
+    for name, (kk, vv, gqa) in {"gqa": (k4, v4, True),
+                                "repeated": (k4.repeat_interleave(g, 1),
+                                             v4.repeat_interleave(g, 1), False)}.items():
+        leaves = [t.detach().requires_grad_(True) for t in (q4, kk, vv)]
+        o4 = sdpa(*leaves, enable_gqa=gqa, **kw)
+        out[f"{name}_fwd_ms"] = cuda_ms(torch, lambda: sdpa(q4, kk, vv, enable_gqa=gqa, **kw),
+                                        iters=10)
+        out[f"{name}_bwd_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, leaves, do4, retain_graph=True), iters=10)
+        del leaves, o4
+    out["fwd_ms"] = min(out["gqa_fwd_ms"], out["repeated_fwd_ms"])
+    out["bwd_ms"] = min(out["gqa_bwd_ms"], out["repeated_bwd_ms"])
+    return out
+
+
 def pad_mesh_k3(torch, smi: str) -> list[dict]:
     """K3 forward and backward at each PAD_K3 shape, bf16 and f32: dO zero
     on the pad heads, so their dq and the dk, dv of KV heads serving only
     pad heads must be exactly 0; the rest within FA_BWD_TOLERANCE of
-    ``mha_bwd_ref``; the padded shape's ms beside the unpadded shape's."""
+    ``mha_bwd_ref``; the padded shape's ms beside the unpadded shape's, the
+    plain versions' (``mha_ref``, ``mha_bwd_ref``) and SDPA's (the faster
+    of ``enable_gqa`` and repeated KV heads) at the padded shape."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import mha_bwd_ref, mha_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3371,6 +3429,10 @@ def pad_mesh_k3(torch, smi: str) -> list[dict]:
                         for a, w in zip((dq, dk, dv), want))
             del want
             times = {"padded": _fwd_bwd_ms(torch, fa_ops, q, k, v, do, window)}
+            plain = (cuda_ms(torch, lambda: mha_ref(q, k, v, window=window), iters=5),
+                     cuda_ms(torch, lambda: mha_bwd_ref(q, k, v, out, do, lse, window=window),
+                             iters=5))
+            library = _sdpa_fwd_bwd_ms(torch, q, k, v, do, window, hp)
             times["unpadded"] = _fwd_bwd_ms(torch, fa_ops, *(
                 torch.randn((PAD_BATCH * n, PAD_PROMPT, dh), generator=gen, device=dev)
                 .to(dtype) for n in (h, kv, kv, h)), window)
@@ -3382,6 +3444,9 @@ def pad_mesh_k3(torch, smi: str) -> list[dict]:
                    "unpadded_fwd_ms": times["unpadded"][0],
                    "unpadded_bwd_ms": times["unpadded"][1],
                    "padded_over_unpadded": (sum(times["padded"]) / sum(times["unpadded"])),
+                   "plain_fwd_ms": plain[0], "plain_bwd_ms": plain[1],
+                   "library_fwd_ms": library["fwd_ms"], "library_bwd_ms": library["bwd_ms"],
+                   "library": library,
                    "fwd_bound_ms": fa_bound(PAD_BATCH * hp, PAD_BATCH * kvp, PAD_PROMPT, dh,
                                             q.element_size(), window)[0],
                    "bwd_bound_ms": fa_bwd_bound(PAD_BATCH * hp, PAD_BATCH * kvp, PAD_PROMPT, dh,
@@ -3457,6 +3522,199 @@ def phase_pad_mesh(torch, smi: str) -> dict:
            "seconds": time.perf_counter() - t0, "card": smi}
     emit(out)
     return {"models": rows, "k3": k3, "serve": serve, **out}
+
+
+def mesh_tools(torch) -> dict:
+    """What this torch offers the mesh path: DeviceMesh, DTensor, local_map,
+    implicit replication and the nccl backend."""
+    import importlib
+
+    import torch.distributed as dist
+
+    have = {}
+    for mod, name in (("torch.distributed.device_mesh", "init_device_mesh"),
+                      ("torch.distributed.tensor", "DTensor"),
+                      ("torch.distributed.tensor", "distribute_tensor"),
+                      ("torch.distributed.tensor.experimental", "local_map"),
+                      ("torch.distributed.tensor.experimental", "implicit_replication")):
+        try:
+            have[name] = hasattr(importlib.import_module(mod), name)
+        except ImportError:
+            have[name] = False
+    have["nccl"] = dist.is_nccl_available()
+    return have
+
+
+def _mesh_train(torch, cfg, mesh, policy, batches):
+    """MESH_STEPS steps of ``cfg`` from SEED's weights: one device when
+    ``mesh`` is None, else ``build_cell`` under ``policy``.  (losses, step
+    ms, launches, params, optimizer state)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import build_cell, build_train, place
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import init_opt_state
+
+    shape = ShapeSpec("mesh-one", MESH_SEQ, MESH_BATCH, "train")
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    params.requires_grad_(True)
+    state = init_opt_state(params)
+    if mesh is None:
+        step, _ = build_train(cfg, shape, device=DEVICE)
+    else:
+        step, (pspec, ospec, bspec), _ = build_cell(cfg, shape, mesh, policy)
+        state, params = place(state, ospec, mesh), place(params, pspec, mesh)
+        batches = [place(b, bspec, mesh) for b in batches]
+    sync = torch.cuda.synchronize if torch.device(DEVICE).type == "cuda" else (lambda: None)
+    losses, step_ms = [], []
+    sync()
+    reset_counts()
+    for b in batches:
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, b)
+        losses.append(float(metrics["loss"]))
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms, {k: launches(k) for k in MESH_KERNELS}, params, state
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _mesh_serve(torch, cfg, mesh, params, prompt):
+    """Prefill ``prompt`` into caches of MESH_SEQ + MESH_DECODE slots, then
+    MESH_DECODE greedy decode steps, one device or on ``mesh``: (every
+    logits, the caches, launches, prefill ms, decode ms a step)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import build_cell, place
+
+    pshape = ShapeSpec("mesh-one-p", MESH_SEQ, MESH_BATCH, "prefill")
+    dshape = ShapeSpec("mesh-one-d", MESH_SEQ + MESH_DECODE, MESH_BATCH, "decode")
+    kw = {"device": DEVICE} if mesh is None else {}
+    prefill, ab = build_cell(cfg, pshape, mesh, cache_len=dshape.seq_len, **kw)[:2]
+    decode, dab = build_cell(cfg, dshape, mesh, **kw)[:2]
+    put = (lambda t, spec: t) if mesh is None else (  # noqa: E731
+        lambda t, spec: place(t, spec, mesh))
+    batch = put({"tokens": prompt}, ab[1])
+    sync = torch.cuda.synchronize if torch.device(DEVICE).type == "cuda" else (lambda: None)
+    sync()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, batch)
+        out = [_full(logits)]
+        sync()
+        t1 = time.perf_counter()
+        for i in range(MESH_DECODE):
+            tok = out[-1].argmax(-1).int()
+            logits, caches = decode(params, caches, put(tok, dab[2]), MESH_SEQ + i)
+            out.append(_full(logits))
+        sync()
+        t2 = time.perf_counter()
+    return (out, [{k: _full(v) for k, v in c.items()} for c in caches],
+            {k: launches(k) for k in MESH_KERNELS}, (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3 / MESH_DECODE)
+
+
+def phase_mesh_one(torch, smi: str) -> dict:
+    """The port's mesh path on the card as a world of one (``mesh-one``):
+    ``launch.mesh.init_world_of_one`` on nccl, a (1, 1) ("data", "model")
+    mesh, ``launch.steps.build_cell`` (MESH_ARCHS, MESH_POLICIES,
+    MESH_STEPS of MESH_BATCH x MESH_SEQ, then Qwen2-0.5B's prefill and
+    MESH_DECODE decode steps).  Each run ``torch.equal`` to the one-device
+    path on the same seed's weights and batches (losses, every parameter and
+    moment after the steps; logits and caches), with the same launches of
+    K3, K3's backward, K4 and K4's backward; ms a step and tok/s on both
+    (DTensor's dispatch on a host-bound step: recorded, not gated)."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import init_world_of_one, make_test_mesh
+    from repro_torch.launch.steps import build_cell, place
+    from repro_torch.models import model as M
+    from repro_torch.training.train_loop import batch_to
+
+    t_phase = time.perf_counter()
+    tools = mesh_tools(torch)
+    kind = torch.device(DEVICE).type
+    backend = init_world_of_one(kind)
+    mesh = make_test_mesh((1, 1), device_type=kind)
+    emit({"phase": "mesh-one-tools", "torch": torch.__version__, **tools, "backend": backend,
+          "world": dist.get_world_size(), "mesh": list(mesh.shape), "card": smi})
+    rows, problems = [], []
+    tokens = MESH_BATCH * MESH_SEQ
+    for arch, layers in MESH_ARCHS.items():
+        cfg = get_config(arch)
+        if layers:
+            cfg = dc.replace(cfg, n_layers=layers)
+        data = SyntheticLM(cfg.vocab_size, MESH_SEQ, MESH_BATCH, seed=SEED)
+        batches = [batch_to(data.batch_at(i), DEVICE) for i in range(MESH_STEPS)]
+        losses, ms, counts, params, state = _mesh_train(torch, cfg, None, None, batches)
+        one = {"losses": losses, "ms_per_step": ms, "launches": counts,
+               "tokens_per_s": tokens / (min(ms) / 1e3)}
+        for policy in MESH_POLICIES:
+            m_losses, m_ms, m_counts, m_params, m_state = _mesh_train(torch, cfg, mesh, policy,
+                                                                      batches)
+            same = {"losses": m_losses == losses,
+                    "params": all(torch.equal(a, _full(b)) for a, b in zip(
+                        params.parameters(), m_params.parameters())),
+                    "moments": all(torch.equal(state.mu[n], _full(m_state.mu[n]))
+                                   and torch.equal(state.nu[n], _full(m_state.nu[n]))
+                                   for n in state.mu),
+                    "launches": m_counts == counts}
+            row = {"phase": "mesh-one", "arch": arch, "layers": cfg.n_layers,
+                   "policy": policy, "backend": backend, "dtype": cfg.dtype,
+                   "remat": cfg.remat, "batch": MESH_BATCH, "seq": MESH_SEQ,
+                   "steps": MESH_STEPS, "equal": same, "losses": m_losses,
+                   "launches": m_counts, "ms_per_step": m_ms,
+                   "tokens_per_s": tokens / (min(m_ms) / 1e3), "one_device": one,
+                   "mesh_over_one_device": min(m_ms) / min(ms), "card": smi}
+            emit(row)
+            rows.append(row)
+            if not all(same.values()):
+                problems.append((arch, policy, same))
+            if not any(m_counts.values()):
+                problems.append((arch, policy, "no kernel launched"))
+            del m_params, m_state
+        del params, state
+        torch.cuda.empty_cache()
+    cfg = get_config(DENSE_ARCH)
+    prompt = torch.from_numpy(np.random.default_rng([SEED, 7]).integers(
+        0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ), dtype=np.int32)).to(DEVICE)
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    one = _mesh_serve(torch, cfg, None, params, prompt)
+    pspec = build_cell(cfg, ShapeSpec("p", MESH_SEQ, MESH_BATCH, "prefill"), mesh)[1][0]
+    got = _mesh_serve(torch, cfg, mesh, place(params, pspec, mesh), prompt)
+    same = {"logits": all(torch.equal(a, b) for a, b in zip(one[0], got[0])),
+            "caches": all(torch.equal(a[k], b[k]) for a, b in zip(one[1], got[1]) for k in a),
+            "launches": one[2] == got[2]}
+    row = {"phase": "mesh-one-serve", "arch": DENSE_ARCH, "backend": backend,
+           "batch": MESH_BATCH, "prompt": MESH_SEQ, "decode_steps": MESH_DECODE,
+           "equal": same, "launches": got[2], "prefill_ms": got[3], "decode_ms": got[4],
+           "one_device": {"launches": one[2], "prefill_ms": one[3], "decode_ms": one[4]},
+           "card": smi}
+    emit(row)
+    if not all(same.values()) or not got[2]["flash_attention"]:
+        problems.append(("serve", same, got[2]))
+    del params, one, got
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "mesh-one-summary", "seconds": seconds, "tools": tools, "card": smi})
+    if problems:
+        raise AssertionError(f"mesh-one: {problems}")
+    return {"rows": rows, "serve": row, "seconds": seconds, "tools": tools}
+
+
+def mesh_launches(mesh_one: dict, kernel: str) -> dict:
+    """``kernel``'s launches in each ``mesh-one`` run ("arch/policy", and
+    the serving run), each equal to its one-device run's."""
+    out = {f"{r['arch']}/{r['policy']}": r["launches"][kernel] for r in mesh_one["rows"]}
+    out["serve"] = mesh_one["serve"]["launches"][kernel]
+    return out
 
 
 def main() -> int:
@@ -3560,6 +3818,7 @@ def main() -> int:
     remat = run("train-remat", phase_train_remat, torch, smi)
     full_depth = run("train-full-depth", phase_train_full_depth, torch, smi, remat)
     pad_mesh = run("pad-mesh", phase_pad_mesh, torch, smi)
+    mesh_one = run("mesh-one", phase_mesh_one, torch, smi)
     emit({"phase": "seconds", **seconds})
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -3607,6 +3866,7 @@ def main() -> int:
         "launches_serve_granite": serving["flash_attention_granite"]["launches"][
             "flash_attention"],
         "launches_train_qwen2": trained["launches"]["flash_attention"],
+        "launches_mesh_one": mesh_launches(mesh_one, "flash_attention"),
         # Qwen2-0.5B padded for tp 8 with pad_kv (56 heads over 8 KV heads), served
         "launches_serve_padded": pad_mesh["serve"]["k3_launches"][1],
         "launches_train_full_depth": {a: r["launches"]["flash_attention"]
@@ -3627,6 +3887,7 @@ def main() -> int:
         "replaces": FA_BWD_REPLACES,
         "replaces_note": "no TPU kernel: XLA differentiates the reference's attend",
         "launches": trained["launches"]["flash_attention_bwd"],
+        "launches_mesh_one": mesh_launches(mesh_one, "flash_attention_bwd"),
         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "worst_to_tolerance": row["worst_to_tolerance"],
@@ -3659,6 +3920,7 @@ def main() -> int:
         "library_ms": row["library_ms"], "chunked_ms": row["chunked_ms"],
         "f32_core_bound_ms": row["f32_core_bound_ms"],
         "launches_train_mamba2": trained_mamba["launches"]["ssd_scan"],
+        "launches_mesh_one": mesh_launches(mesh_one, "ssd_scan"),
         "shape": dict(zip(("batch", "s", "h", "p", "n"), SSD_SERVING), dtype="float32")})
     row = k4_bwd[SSD_BWD_SHAPES[0]]
     summary.append({
@@ -3666,6 +3928,7 @@ def main() -> int:
         "replaces": SSD_BWD_REPLACES,
         "replaces_note": "no TPU kernel: XLA differentiates the reference's ssd_chunked",
         "launches": trained_mamba["launches"]["ssd_scan_bwd"],
+        "launches_mesh_one": mesh_launches(mesh_one, "ssd_scan_bwd"),
         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "chunked_autograd_ms": row["chunked_autograd_ms"],

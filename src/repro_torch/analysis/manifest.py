@@ -159,10 +159,15 @@ DEFAULT_MANIFEST = Manifest(
         # the analytic roofline and its report: pure functions of their
         # inputs (records read in sorted order), no clock, no locks
         "*/repro_torch/roofline/*.py",
+        # the logical-axis rule tables and placements: pure functions of
+        # the rules, the specs and the mesh's shape; no clock, no locks
+        # (a process group's collectives take none either)
+        "*/repro_torch/distributed/*.py",
     ),
     wall_modules=(
         "*/repro_torch/pilot/backends/local.py",
         "*/repro_torch/pilot/backends/torchdevice.py",
+        # the launchers, launch/mesh.py's process groups and meshes included
         "*/repro_torch/launch/*.py",
     ),
     overrides=(

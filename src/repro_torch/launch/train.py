@@ -1,4 +1,4 @@
-"""End-to-end training on one torch device: the CLI and its loop.
+"""End-to-end training on one torch device or a device mesh: the CLI and its loop.
 
 Ports ``repro.launch.train``: ``SyntheticLM`` data, the step from
 ``launch.steps.build_train``, AdamW, periodic async checkpoints and an
@@ -7,8 +7,15 @@ data is a pure function of the step).  Weights are random, drawn from
 ``--seed``.  On the card every attention layer runs kernel K3 forward and
 its backward kernels, at every head dim the configs use (64, 128 and
 RecurrentGemma-2B's 256), and every Mamba-2 layer kernel K4 forward
-(keeping its span states) and its backward kernels.  ``--mesh`` is
-refused until the multi-device slice.
+(keeping its span states) and its backward kernels.
+
+``--mesh DxM`` trains on a (data, model) ``DeviceMesh`` through
+``launch.steps.build_cell`` (the ``default`` policy, the config padded
+for M): a world of one in this process when D·M is 1,
+otherwise the world that ``torchrun``'s environment names, which must
+have D·M ranks.  Weights, moments and batches are drawn whole on every
+rank and placed (``launch.steps.place``); checkpoints hold full tensors,
+the same files as one device's.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --reduced \\
         --device cpu --steps 20 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
@@ -18,20 +25,26 @@ refused until the multi-device slice.
         --steps 8 --batch 4 --seq 1024 --microbatches 2   # Dh 256, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --steps 30 \\
         --batch 8 --seq 1024 --microbatches 2      # K4 and its backward, on the card
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+        --arch qwen2-0.5b --reduced --device cpu --mesh 2x4 --steps 5   # gloo ranks
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ShapeSpec, get_config
+from repro_torch.configs.base import ShapeSpec, get_config, pad_for_mesh
+from repro_torch.distributed.sharding import axis_sizes
 from repro_torch.data.pipeline import SyntheticLM
-from repro_torch.launch.steps import build_train
+from repro_torch.launch.mesh import backend_for, init_world_of_one, make_test_mesh
+from repro_torch.launch.steps import build_cell, build_train, place
 from repro_torch.models import model as M
 from repro_torch.training.checkpoint import CheckpointManager, latest_step
 from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
@@ -66,18 +79,29 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-3,
           log=print) -> TrainResult:
     """Train ``cfg`` from random weights (seed ``seed``) or from the latest
     checkpoint under ``ckpt_dir`` up to ``steps`` steps of ``batch`` x
-    ``seq`` tokens; checkpoints every ``ckpt_every`` steps and at the end."""
+    ``seq`` tokens; checkpoints every ``ckpt_every`` steps and at the end.
+    With a ``DeviceMesh`` ``mesh`` the step is ``build_cell``'s (``cfg``
+    padded for the mesh's model axis)."""
     dev = resolve_device(device)
     opt_cfg = OptimizerConfig(lr=lr, warmup_steps=min(20, steps // 10 + 1), decay_steps=steps)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=seed,
                        n_prefix=cfg.n_prefix if cfg.frontend else 0,
                        d_model=cfg.d_model if cfg.frontend else 0)
-    step_fn, _ = build_train(cfg, ShapeSpec("cli", seq, batch, "train"), mesh, device=dev,
-                             n_microbatches=microbatches, opt_cfg=opt_cfg)
+    shape = ShapeSpec("cli", seq, batch, "train")
+    if mesh is None:
+        step_fn, _ = build_train(cfg, shape, device=dev, n_microbatches=microbatches,
+                                 opt_cfg=opt_cfg)
+        to_mesh = lambda tree, spec: tree  # noqa: E731
+    else:
+        step_fn, spec, _ = build_cell(cfg, shape, mesh, n_microbatches=microbatches,
+                                      opt_cfg=opt_cfg)
+        cfg = pad_for_mesh(cfg, axis_sizes(mesh).get("model", 1))
+        to_mesh = lambda tree, part: place(tree, spec[part], mesh)  # noqa: E731
 
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     params.requires_grad_(True)
-    opt_state = init_opt_state(params)
+    opt_state = to_mesh(init_opt_state(params), 1)
+    params = to_mesh(params, 0)
     start = 0
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     if mgr and latest_step(ckpt_dir) is not None:
@@ -93,7 +117,8 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-3,
     t0 = time.perf_counter()
     for step in range(start, steps):
         t_step = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, batch_to(data.batch_at(step), dev))
+        params, opt_state, metrics = step_fn(params, opt_state,
+                                             to_mesh(batch_to(data.batch_at(step), dev), 2))
         res.losses.append(float(metrics["loss"]))
         res.step_s.append(time.perf_counter() - t_step)
         res.grad_norms.append(float(metrics["grad_norm"]))
@@ -132,13 +157,41 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default=None,
-                    help="a (data, model) device mesh such as '2x4': refused, one device only")
+                    help="a (data, model) device mesh such as '2x4': a world of one in "
+                         "this process for '1x1', else torchrun's world of D*M ranks")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch, reduced=args.reduced)
+    mesh = None if args.mesh is None else _mesh_from_arg(args.mesh, args.device)
     return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
                  microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
                  ckpt_every=args.ckpt_every, log_every=args.log_every, seed=args.seed,
-                 device=args.device, mesh=args.mesh)
+                 device=args.device, mesh=mesh)
+
+
+def _mesh_from_arg(arg: str, device="cuda"):
+    """The (data, model) mesh of ``--mesh DxM`` on ``device``'s type: a
+    world of one in this process when D·M is 1, else the process group of
+    ``torchrun``'s environment (``env://``), which must have D·M ranks."""
+    try:
+        shape = tuple(int(n) for n in arg.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        raise ValueError(f"--mesh {arg!r}: expected DxM, such as 2x4")
+    kind = resolve_device(device).type
+    if shape[0] * shape[1] == 1:
+        init_world_of_one(kind)
+    elif not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise ValueError(f"--mesh {arg} needs {shape[0] * shape[1]} ranks: run under "
+                             f"torchrun --nproc-per-node {shape[0] * shape[1]}")
+        dist.init_process_group(backend_for(kind), init_method="env://")
+    if dist.get_world_size() != shape[0] * shape[1]:
+        raise ValueError(f"--mesh {arg} needs {shape[0] * shape[1]} ranks; the world has "
+                         f"{dist.get_world_size()}")
+    if kind == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    return make_test_mesh(shape, device_type=kind)
 
 
 if __name__ == "__main__":

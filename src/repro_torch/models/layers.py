@@ -4,12 +4,15 @@ Ports ``repro.models.layers``.  Parameters keep the reference's layouts
 (dense weights ``(in, out)``, embedding ``(V, d)``) and live in
 ``nn.ParameterDict``s, so ``p["scale"]`` reads as in the reference and a
 weight converts from the JAX package by a copy, with no transpose.  The
-reference's sharding ``constrain`` calls are dropped: this is one device.
+MLP hidden (``act_ff``) and the logits (``act_vocab``) are constrained at
+the reference's places (``distributed.sharding.constrain``: the input
+itself with no rules active), and ``tp_input`` gathers the sequence-
+sharded residual stream where a product takes it.
 Initialisers draw from an explicit ``torch.Generator``: the same
 distributions as the reference, not its bits.  ``norm_specs``,
 ``mlp_specs`` and ``embedding_specs`` return the reference's trees of
 logical sharding axes (tuples) for the norm, MLP and embedding parameters:
-plain data for the rule tables of the multi-device slice.
+plain data for the rule tables of ``distributed.sharding``.
 """
 
 from __future__ import annotations
@@ -20,15 +23,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import constrain
+
 __all__ = ["dense_init", "embed_init", "norm_init", "norm_specs", "apply_norm",
            "rope_frequencies", "apply_rope", "sinusoidal_pos_emb", "mlp_init", "mlp_specs",
            "apply_mlp", "embedding_init", "embedding_specs", "embed_tokens", "logits_head",
-           "param_dict"]
+           "param_dict", "tp_input"]
 
 
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
+
+def tp_input(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream (B, S, d) as a product takes it: gathered over
+    its sequence shards (``act_seq``), the all-gather GSPMD inserts in the
+    reference; DTensor would not flatten a sharded sequence into the
+    product's rows.  ``x`` itself with no rules active."""
+    return constrain(x, ("batch", None, None))
+
 
 def param_dict(tensors: dict[str, torch.Tensor]) -> nn.ParameterDict:
     """Parameters, frozen by default: serving needs no gradient.  The
@@ -141,6 +154,7 @@ def mlp_specs(cfg):
 
 
 def apply_mlp(p, cfg, x):
+    x = tp_input(x)
     if cfg.mlp_type in ("swiglu", "geglu"):
         # jax.nn.gelu's default is the tanh approximation
         act = F.silu if cfg.mlp_type == "swiglu" else (
@@ -148,6 +162,7 @@ def apply_mlp(p, cfg, x):
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = F.gelu(x @ p["w_up"], approximate="tanh")
+    h = constrain(h, ("batch", None, "act_ff"))
     return h @ p["w_down"]
 
 
@@ -182,6 +197,7 @@ def logits_head(p, cfg, x):
     untied head), an optional soft cap, then the mesh-padding columns set
     to -1e30 in f32, so the softmax gives them exactly 0 (and they get zero
     gradients)."""
+    x = tp_input(x)
     if cfg.tie_embeddings:
         logits = x @ p["tokens"].T
     else:
@@ -193,4 +209,4 @@ def logits_head(p, cfg, x):
     if cfg.vocab_p != cfg.vocab_size:
         pad = torch.arange(cfg.vocab_p, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    return logits
+    return constrain(logits, ("batch", None, "act_vocab"))

@@ -28,6 +28,13 @@ parameters at the padded sizes (``heads_p``, ``kv_heads_p``, ``vocab_p``,
 ``experts_p``), and ``params_from_numpy`` takes the reference's padded
 tree as it is.
 
+Under a mesh (``distributed.sharding`` rules active, parameters as
+DTensors from ``launch.steps``) the same functions run sharded:
+``named_param_specs`` and ``layer_cache_specs`` give each port tensor its
+spec, ``cache_init`` places the caches, the embedded stream is constrained
+on ``act_seq`` as in the reference, and the loss's gold logit is gathered
+from each rank's vocab shard.
+
 ``loss_fn`` is the training objective (reference ``model.py:76``):
 next-token NLL, the frontend's prefix positions masked out, differentiable
 through every layer; on the card its attention runs kernel K3 forward and
@@ -39,16 +46,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Shard, distribute_tensor
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import (constrain, current_rules, local_region,
+                                              placements, shard_range)
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (apply_norm, embed_tokens, embedding_init,
                                        embedding_specs, logits_head, norm_init, norm_specs,
-                                       param_dict, sinusoidal_pos_emb)
+                                       param_dict, sinusoidal_pos_emb, tp_input)
 
-__all__ = ["init_params", "param_specs", "params_from_numpy", "forward", "loss_fn",
-           "cache_init", "cache_specs", "prefill", "decode_step", "decode_greedy",
-           "greedy_generate"]
+__all__ = ["init_params", "param_specs", "named_param_specs", "params_from_numpy",
+           "forward", "loss_fn", "cache_init", "cache_specs", "layer_cache_specs", "prefill",
+           "decode_step", "decode_greedy", "greedy_generate"]
+
+
+_LOGITS = ("batch", None, "act_vocab")
+_LABELS = ("batch", None)
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -70,6 +84,32 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> nn.ModuleDict
 def param_specs(cfg) -> dict:
     return {"embedding": embedding_specs(cfg), "stack": tf.stack_specs(cfg),
             "final_norm": norm_specs(cfg.norm_type)}
+
+
+def _layer_tree(stack_tree, cfg, layer: int) -> dict:
+    """Layer ``layer``'s entry of a reference-shaped stack tree: its
+    group's, with the leading (layer) axis dropped, or its tail entry."""
+    size = len(cfg.block_pattern)
+    if layer >= cfg.n_groups * size:
+        return stack_tree["tail"][layer - cfg.n_groups * size]
+
+    def drop(t):
+        return {k: drop(v) for k, v in t.items()} if isinstance(t, dict) else t[1:]
+
+    i = layer % size
+    return drop(stack_tree["groups"][f"b{i}_{cfg.block_pattern[i]}"])
+
+
+def named_param_specs(cfg) -> dict:
+    """``{parameter name: logical spec}`` over the port's
+    ``named_parameters()`` (``stack.3.attn.wq``), from ``param_specs``."""
+    specs = param_specs(cfg)
+    out = {f"{top}.{k}": s for top in ("embedding", "final_norm")
+           for k, s in specs[top].items()}
+    for layer in range(cfg.n_layers):
+        for group, leaves in _layer_tree(specs["stack"], cfg, layer).items():
+            out.update({f"stack.{layer}.{group}.{k}": s for k, s in leaves.items()})
+    return out
 
 
 def params_from_numpy(cfg, tree, device="cuda") -> nn.ModuleDict:
@@ -124,7 +164,7 @@ def _embed_inputs(params, cfg, tokens, embeds, positions):
         x[:, :embeds.shape[1]] = embeds.to(x.dtype)
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_pos_emb(positions, cfg.d_model).to(x.dtype)
-    return x
+    return constrain(x, ("batch", "act_seq", None))
 
 
 def forward(params, cfg, tokens: torch.Tensor, embeds: torch.Tensor | None = None
@@ -138,13 +178,32 @@ def forward(params, cfg, tokens: torch.Tensor, embeds: torch.Tensor | None = Non
     return logits_head(params["embedding"], cfg, x)
 
 
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The logit at each label: a ``gather`` of one label a position, whose
+    backward writes each position's own slot (no colliding indices).  Under
+    a mesh each rank gathers from its own vocab shard and puts 0 where the
+    label lies in another's, so the ranks' results are a partial sum over
+    the vocab's mesh axes (a vocab-parallel loss, as Megatron's)."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    logits, labels = constrain(logits, _LOGITS), constrain(labels, _LABELS)
+    v0, vl = shard_range(logits, 2)
+    out_pl = [Partial() if isinstance(p, Shard) and p.dim == 2 else q
+              for p, q in zip(logits.placements, labels.placements)]
+
+    def local(lg, lb):
+        idx = lb.long() - v0
+        got = torch.gather(lg, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+        return torch.where((idx >= 0) & (idx < vl), got, torch.zeros_like(got))
+
+    return local_region(local, (logits, labels), (_LOGITS, _LABELS), _LABELS,
+                        out_placements=[out_pl])
+
+
 def _nll(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Summed masked NLL of f32 logits (..., V) at int labels (...).  The
-    gold logit is a ``gather`` of one label a position, whose backward
-    writes each position's own slot (no colliding indices)."""
+    """Summed masked NLL of f32 logits (..., V) at int labels (...)."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return ((logz - gold) * mask).sum()
+    return ((logz - _gold(logits, labels)) * mask).sum()
 
 
 def _xent(logits, labels, mask):
@@ -164,7 +223,7 @@ def loss_fn(params, cfg, batch) -> torch.Tensor:
     positions = _positions(B, 0, S, tokens.device)
     x = _embed_inputs(params, cfg, tokens, batch.get("embeds"), positions)
     x, _ = tf.apply_stack(params["stack"], cfg, x, positions)
-    x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+    x = tp_input(apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps))
     labels = tokens[:, 1:]
     mask = (positions[:, 1:] >= cfg.n_prefix).float()
     h = x[:, :-1]
@@ -184,13 +243,27 @@ def loss_fn(params, cfg, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def cache_init(cfg, batch, cache_len, dtype=None, device="cuda"):
-    """Empty per-layer K/V caches of ``cache_len`` slots on ``device``."""
-    return tf.stack_cache_init(cfg, batch, cache_len, dtype or _dtype(cfg),
-                               device=resolve_device(device))
+    """Empty per-layer K/V caches of ``cache_len`` slots on ``device``;
+    under rules with a mesh, DTensors at ``layer_cache_specs``' placements."""
+    caches = tf.stack_cache_init(cfg, batch, cache_len, dtype or _dtype(cfg),
+                                 device=resolve_device(device))
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return caches
+    return [{k: distribute_tensor(t, rules.mesh, placements(rules.mesh, rules.pspec(specs[k])),
+                                  src_data_rank=None) for k, t in cache.items()}
+            for cache, specs in zip(caches, layer_cache_specs(cfg))]
 
 
 def cache_specs(cfg) -> dict:
     return tf.stack_cache_specs(cfg)
+
+
+def layer_cache_specs(cfg) -> list:
+    """The port's caches' specs: one ``{"k", "v"}`` or ``{"h", "conv"}``
+    dict a layer, as ``cache_init`` lays them out, from ``cache_specs``."""
+    specs = cache_specs(cfg)
+    return [_layer_tree(specs, cfg, layer) for layer in range(cfg.n_layers)]
 
 
 def prefill(params, cfg, tokens: torch.Tensor, cache_len: int | None = None,
@@ -202,7 +275,7 @@ def prefill(params, cfg, tokens: torch.Tensor, cache_len: int | None = None,
     x = _embed_inputs(params, cfg, tokens, embeds, positions)
     caches = cache_init(cfg, B, cache_len or S, device=tokens.device)
     x, caches = tf.apply_stack(params["stack"], cfg, x, positions, caches)
-    x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+    x = tp_input(apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps))
     logits = logits_head(params["embedding"], cfg, x[:, -1:])
     return logits[:, 0], caches
 

@@ -24,7 +24,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, param_dict
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models.layers import dense_init, param_dict, tp_input
 
 __all__ = ["rglru_init", "rglru_specs", "apply_rglru", "rglru_cache_init",
            "rglru_cache_specs", "rglru_decode_step"]
@@ -118,9 +119,11 @@ def _gelu(t):
 def apply_rglru(p, cfg, u, h0=None, conv_state=None, return_state=False):
     """u (B, S, d) -> (B, S, d); with ``return_state`` also (h (B, w) f32 at
     the last position, the conv history (B, 3, w))."""
+    u = tp_input(u)
     x = u @ p["w_x"]
     gate = _gelu((u @ p["w_gate"]).float())
     x, new_conv = _conv(x, p["conv_w"], p["conv_b"], conv_state)
+    x = constrain(x, ("batch", None, "act_lru"))
     a, b = _gates(p, x)
     if h0 is not None:
         # fold the initial state into the first step: h_1 = a_1 h0 + b_1

@@ -12,8 +12,10 @@ ngroups = 1.  The prefill's SSD goes through ``kernels.ssd_scan.ops.ssd_scan``
 (kernel K4 for CUDA tensors, ``ssd_chunked`` for CPU tensors); decode stays
 plain torch, as the reference has no kernel there.  ``A_log``, ``D`` and
 ``dt_bias`` are float32 in every model dtype, as in the reference.  The
-reference's sharding specs and ``constrain`` calls are dropped: this is
-one device.
+SSD input is constrained on ``ssm_inner`` at the reference's place; under
+a mesh the scan runs on local shards (``local_region``: K4 takes
+``data_ptr()``s), its operands sharded on the batch only, as every policy
+keeps Mamba-2 data-parallel (``ssm_inner`` is never sharded).
 """
 
 from __future__ import annotations
@@ -23,11 +25,16 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, local_region
 from repro_torch.kernels.ssd_scan.ops import chunk_length, ssd_scan
-from repro_torch.models.layers import dense_init, param_dict
+from repro_torch.models.layers import dense_init, param_dict, tp_input
 
 __all__ = ["ssm_init", "ssm_specs", "apply_ssm", "ssm_cache_init", "ssm_cache_specs",
            "ssm_decode_step", "ssd_chunked", "ssd_recurrent"]
+
+
+_BATCH3 = ("batch", None, None)
+_BATCH4 = ("batch", None, None, None)
 
 
 def _dims(cfg):
@@ -156,6 +163,7 @@ def _gated_norm(y, z, scale, eps):
 
 
 def _proj_all(p, x):
+    x = tp_input(x)
     z = x @ p["in_z"]
     xi = x @ p["in_x"]
     Bm = x @ p["in_B"]
@@ -189,11 +197,17 @@ def apply_ssm(p, cfg, x, return_state=False):
     B, S, _ = x.shape
     _, nh, _ = _dims(cfg)
     z, xi, Bm, Cm, dt, new_conv = _conv_split(p, cfg, x, None)
+    xi = constrain(xi, ("batch", None, "ssm_inner"))
     A = -torch.exp(p["A_log"])
     # the kernel takes contiguous f32 operands in the model layout
     xh = xi.float().reshape(B, S, nh, cfg.ssm_head_dim).contiguous()
-    y, hT = ssd_scan(xh, dt, A, Bm.float().contiguous(), Cm.float().contiguous(),
-                     chunk=cfg.ssm_chunk)
+
+    def scan(xh, dt, A, Bm, Cm):
+        return ssd_scan(xh, dt, A, Bm.float().contiguous(), Cm.float().contiguous(),
+                        chunk=cfg.ssm_chunk)
+
+    y, hT = local_region(scan, (xh, dt, A, Bm, Cm),
+                         (_BATCH4, _BATCH3, (None,), _BATCH3, _BATCH3), [_BATCH4, _BATCH4])
     out = _out(p, cfg, y, xh, z, x.dtype)
     if return_state:
         return out, (hT, new_conv)

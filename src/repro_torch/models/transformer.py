@@ -49,6 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import constrain, current_rules, like, use_rules
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -71,6 +72,20 @@ def _check_kind(kind: str) -> None:
 
 def _window(cfg, kind: str) -> int:
     return cfg.local_window if kind == "local_attn" else 0
+
+
+def _res(x):
+    """The residual stream after a sub-block, on ``act_seq``."""
+    return constrain(x, ("batch", "act_seq", None))
+
+
+def _add(x, y):
+    """``x + y`` on the residual stream, the sub-block's output ``y`` put on
+    the stream's placements first: its gradient then returns through that
+    redistribution, and a product's backward never meets a sequence shard
+    (DTensor would add across placements without giving the gradient
+    back its own)."""
+    return _res(x + _res(y))
 
 
 def _ffn(p, cfg, kind, h):
@@ -144,21 +159,21 @@ def apply_block(p, cfg, kind, x, positions, cache=None):
             r = apply(group, cfg, h)
         else:
             r, (hT, conv) = apply(group, cfg, h, return_state=True)
-            cache["h"].copy_(hT)
-            cache["conv"].copy_(conv)
-        x = x + r
+            cache["h"].copy_(like(hT, cache["h"]))
+            cache["conv"].copy_(like(conv, cache["conv"]))
+        x = _add(x, r)
         if kind == "ssm":
             return x, cache
         h = apply_norm(p["norm2"], x, cfg.norm_type, cfg.norm_eps)
-        return x + apply_mlp(p["ffn"], cfg, h), cache
+        return _add(x, apply_mlp(p["ffn"], cfg, h)), cache
     window = _window(cfg, kind)
     if cache is not None:
         a, cache = attn_mod.prefill_into_cache(p["attn"], cfg, h, positions, cache, window)
     else:
         a, _ = attn_mod.attend(p["attn"], cfg, h, positions, window)
-    x = x + a
+    x = _add(x, a)
     h = apply_norm(p["norm2"], x, cfg.norm_type, cfg.norm_eps)
-    x = x + _ffn(p, cfg, kind, h)
+    x = _add(x, _ffn(p, cfg, kind, h))
     return x, cache
 
 
@@ -248,6 +263,22 @@ def _remat(cfg, fn):
     return partial(checkpoint, fn, use_reentrant=False)
 
 
+def _keep_rules(fn):
+    """``fn`` run under the sharding rules active now, wherever it runs: a
+    checkpoint recomputes it inside the backward, which for CUDA tensors
+    runs on the autograd engine's device thread, where the rules' context
+    variable is unset."""
+    rules = current_rules()
+    if rules is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with use_rules(rules):
+            return fn(*args, **kwargs)
+
+    return run
+
+
 def _apply_layers(blocks, cfg, x, positions):
     for block in blocks:
         x, _ = apply_block(block, cfg, block.kind, x, positions)
@@ -265,7 +296,8 @@ def apply_stack(stack, cfg, x, positions, caches=None):
     layers = list(stack)
     size = len(cfg.block_pattern)
     body = cfg.n_groups * size
-    group = _remat(cfg, _apply_layers) if torch.is_grad_enabled() else _apply_layers
+    group = (_remat(cfg, _keep_rules(_apply_layers)) if torch.is_grad_enabled()
+             else _apply_layers)
     for g in range(0, body, size):
         x = group(layers[g:g + size], cfg, x, positions)
     return _apply_layers(layers[body:], cfg, x, positions), None

@@ -15,6 +15,13 @@ dicts or lists of these; a leaf's key joins the path with ``/``
 ``tree_like`` in place (on their devices and dtypes), so a module keeps its
 parameters' identity, and returns that tree.
 
+Under a mesh a leaf may be a DTensor: it is saved as its full tensor (a
+collective, so every rank saves at the same steps), which makes the files
+those of the one-device path, and only rank 0 writes them; a restore
+copies each rank's shard of the stored value into the leaf, at its
+placements.  ``CheckpointManager.wait`` ends with a barrier over the
+ranks, so a restore after it reads a complete checkpoint.
+
 ``CheckpointManager`` takes a host snapshot of every tensor on the
 caller's thread (the training loop may then overwrite its tensors in
 place) before a background ``threading.Thread`` writes it; at most one
@@ -31,7 +38,9 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "CheckpointManager"]
 
@@ -57,7 +66,10 @@ def _flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A host copy of ``t`` and its dtype's name; bfloat16 as uint16 bits."""
+    """A host copy of ``t`` (a DTensor's full tensor) and its dtype's name;
+    bfloat16 as uint16 bits."""
+    if isinstance(t, DTensor):
+        t = t.detach().full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -85,9 +97,25 @@ def _write(ckpt_dir: str, step: int, arrays: dict[str, tuple[np.ndarray, str]]) 
     return final
 
 
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0, or no group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
-    """Write ``tree`` as step ``step`` under ``ckpt_dir``; returns its path."""
-    return _write(ckpt_dir, step, _snapshot(tree))
+    """Write ``tree`` as step ``step`` under ``ckpt_dir`` (rank 0 writes;
+    every rank must call); returns its path."""
+    arrays = _snapshot(tree)
+    path = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if _writes():
+        _write(ckpt_dir, step, arrays)
+    if _ranks() > 1:
+        dist.barrier()
+    return path
 
 
 def _steps(ckpt_dir: str) -> list[int]:
@@ -123,6 +151,9 @@ def restore_checkpoint(ckpt_dir: str, tree_like, step: int | None = None):
             src = torch.from_numpy(arr.copy())          # 0-d stays 0-d
             if dtypes.get(key) == "bfloat16":
                 src = src.view(torch.int16).view(torch.bfloat16)
+            if isinstance(t, DTensor):                  # this rank's shard of it
+                src = distribute_tensor(src.to(t.device), t.device_mesh, t.placements,
+                                        src_data_rank=None)
             t.copy_(src)
     return tree_like, step
 
@@ -140,10 +171,14 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _ranks() > 1:
+            dist.barrier()
 
     def save(self, step: int, tree) -> None:
         self.wait()                             # one outstanding write max
         arrays = _snapshot(tree)                # on this thread, before it returns
+        if not _writes():
+            return
 
         def write():
             _write(self.ckpt_dir, step, arrays)

@@ -1,6 +1,6 @@
 """AdamW with global-norm clipping, on tensors.
 
-Ports ``repro.training.optimizer`` for one device.  The moments are float32
+Ports ``repro.training.optimizer``.  The moments are float32
 whatever the parameter dtype (bf16 parameters + f32 moments), the
 reference's leaves with ``ndim >= 2`` decay (below), and the arithmetic is
 the reference's, in float32, in its order.  The state and the gradients are dicts keyed by the
@@ -16,8 +16,16 @@ their own rank.  ``decay_names`` computes that set from the config and
 Unlike the reference's pure update, ``adamw_step`` writes the new
 parameters and moments IN PLACE (under ``torch.no_grad``): a full-width
 model then holds one copy of each.  It returns the parameters, the new
-state and the reference's metrics.  The reference's ZeRO sharding of the
-moments comes with the multi-device slice.
+state and the reference's metrics.
+
+Under a mesh (``launch.steps.build_train``) the parameters and moments are
+DTensors, the moments at their ZeRO placements (``sharding.zero_specs``).
+``adamw_step`` then redistributes each f32 gradient to its moment's
+placements, updates there, and redistributes the new parameter back to
+the parameter's own: the ZeRO update that GSPMD inserts in the reference,
+with every layout fixed rather than left to DTensor.  ``global_norm`` sums
+each DTensor's square over the mesh into one plain scalar, the same on
+every rank.  On plain tensors every step is as on one device.
 """
 
 from __future__ import annotations
@@ -27,6 +35,9 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import like
 
 __all__ = ["OptimizerConfig", "OptState", "init_opt_state", "adamw_step",
            "decay_names", "global_norm", "lr_schedule"]
@@ -63,10 +74,13 @@ def init_opt_state(params) -> OptState:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor of an iterable, in f32."""
+    """sqrt of the sum of squares of every tensor of an iterable, in f32; a
+    DTensor's square is summed over the mesh first (a replicated scalar)."""
     total = None
     for g in tensors:
         sq = torch.sum(torch.square(g.float()))
+        if isinstance(sq, DTensor):
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -109,14 +123,14 @@ def adamw_step(params, grads: dict, state: OptState, cfg: OptimizerConfig, decay
     bc1 = 1.0 - torch.pow(b1, step.float())
     bc2 = 1.0 - torch.pow(b2, step.float())
     for name, p in named.items():
-        g32 = grads[name].float() * clip
         m, n = state.mu[name], state.nu[name]
+        g32 = like(grads[name].float(), m) * clip         # at the moment's placements
         m.copy_(b1 * m + (1 - b1) * g32)
         n.copy_(b2 * n + (1 - b2) * g32 * g32)
         delta = (m / bc1) / (torch.sqrt(n / bc2) + cfg.eps)
-        p32 = p.float()
+        p32 = like(p.float(), m)
         if name in decay:
             delta = delta + cfg.weight_decay * p32
-        p.copy_((p32 - lr * delta).to(p.dtype))
+        p.copy_(like((p32 - lr * delta).to(p.dtype), p))  # back to the parameter's
     metrics = {"grad_norm": gnorm, "lr": lr, "param_norm": global_norm(named.values())}
     return params, OptState(step=step, mu=state.mu, nu=state.nu), metrics

@@ -10,7 +10,10 @@ gradients are summed over the microbatches, then divided once, as the
 reference's ``lax.scan`` does; activation memory then scales with the
 microbatch.  The sums are accumulated and divided in place and each
 microbatch's gradients are freed as they are summed, so the step holds one
-f32 copy of the gradients.  ``models.transformer`` rematerialises the layer
+f32 copy of the gradients.  Under a mesh (``launch.steps.build_train``)
+each rank splits its own batch shard into the microbatches (data-parallel
+accumulation: on a world of one, the one-device split), and the f32 sums
+live at the parameters' placements.  ``models.transformer`` rematerialises the layer
 groups under ``cfg.remat``.  A parameter that the loss does not reach gets
 a zero gradient, as ``jax.grad`` gives it.
 
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import model as M
 from repro_torch.training.optimizer import OptimizerConfig, adamw_step, decay_names
@@ -36,12 +40,24 @@ def batch_to(batch: dict, device) -> dict:
     return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
-def _split_batch(batch: dict, n_micro: int) -> list[dict]:
-    b = batch["tokens"].shape[0]
+def _split(t, n_micro: int) -> list:
+    """``t`` cut into ``n_micro`` parts on its leading axis; a DTensor's own
+    shard is cut, each part keeping its placements."""
+    local = t.to_local() if isinstance(t, DTensor) else t
+    b = local.shape[0]
     if b % n_micro:
         raise ValueError(f"batch {b} not divisible by {n_micro} microbatches")
     size = b // n_micro
-    return [{k: v[i * size:(i + 1) * size] for k, v in batch.items()} for i in range(n_micro)]
+    parts = [local[i * size:(i + 1) * size] for i in range(n_micro)]
+    if isinstance(t, DTensor):
+        parts = [DTensor.from_local(p, t.device_mesh, t.placements, run_check=False)
+                 for p in parts]
+    return parts
+
+
+def _split_batch(batch: dict, n_micro: int) -> list[dict]:
+    split = {k: _split(v, n_micro) for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n_micro)]
 
 
 def _value_and_grad(params, cfg, batch, named):
@@ -61,8 +77,7 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, n_microbatches: int = 1):
             loss, grads = _value_and_grad(params, cfg, batch, named)
         else:
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for n, p in named.items()}
+            grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in named.items()}
             for mb in _split_batch(batch, n_microbatches):
                 l, g = _value_and_grad(params, cfg, mb, named)
                 loss = loss + l

@@ -431,10 +431,12 @@ def test_build_train_returns_meta_shapes_without_allocating():
 
 
 def test_build_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    """A mesh is a ``DeviceMesh`` (not its name), and ``--mesh`` of more
+    than one rank needs a world of that many (``torchrun``'s)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_train(reduced("qwen2-0.5b"), ShapeSpec("t", 16, 2, "train"), mesh="2x4",
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    with pytest.raises(ValueError, match="torchrun"):
         train_cli.main(["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu", "--mesh", "2x4"])
 
 
