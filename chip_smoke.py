@@ -522,10 +522,27 @@ PAD_K3 = [(14, 2, 16, 2, 64, 0), (14, 2, 56, 8, 64, 0),
 # depth), then Qwen2-0.5B's prefill of MESH_BATCH x MESH_SEQ tokens and
 # MESH_DECODE decode steps; each torch.equal to the one-device path on the
 # same weights and batches, with the same kernel launches
-MESH_ARCHS = {DENSE_ARCH: 0, SSM_ARCH: 0, HYBRID_ARCH: 11}   # RG: 3 groups and the tail
+MESH_ARCHS = {DENSE_ARCH: 0, SSM_ARCH: 0, HYBRID_ARCH: 11,   # RG: 3 groups and the tail
+              MOE_ARCH: 4}
 MESH_POLICIES = ("default", "fsdp")
+# Granite-3.0-3B-A800M at 4 layers also under the MoE policies (a model axis
+# of one: expert parallelism's one-device math on local shards); the serve
+# run repeats under MESH_SERVE_POLICIES (decode_kv: KV heads and caches on
+# the model axis, pad_kv)
+MESH_MOE_POLICIES = MESH_POLICIES + ("fsdp_ep", "moe_noseq", "moe_a2a")
+MESH_SERVE_POLICIES = ("default", "decode_kv")
 MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_DECODE = 4, 1_024, 3, 8
 MESH_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
+# moe-shards: Granite-3.0-3B-A800M's MoE layer at published width (d 1,536,
+# 40 experts top 8, capacity factor 1.25) in f32 on MOE_SHARD_BATCH x
+# MOE_SHARD_SEQ tokens whose top 9 gates are MOE_SHARD_GAP apart: the
+# experts cut into n_model slices for each of MOE_SHARDS, each slice's
+# _moe_core_padded summed in slice order against apply_moe_local on the card,
+# and _moe_a2a over n_model stacked sequence shards (stacked_exchange) on
+# the card against the same on the host; elementwise within MOE_SHARD_TOL
+# (atol and rtol, tests/test_moe.py's)
+MOE_SHARDS = (2, 4, 8)
+MOE_SHARD_BATCH, MOE_SHARD_SEQ, MOE_SHARD_GAP, MOE_SHARD_TOL = 4, 1_024, 1e-5, 2e-4
 # mfu: model_flops (6·N·D training, 2·N·D a forward token; N the logical
 # parameters) over the seconds at the bf16 peak
 MFU_NOTE = "6·N·D (2·N·D serving) leaves out attention's score FLOPs"
@@ -3526,7 +3543,9 @@ def phase_pad_mesh(torch, smi: str) -> dict:
 
 def mesh_tools(torch) -> dict:
     """What this torch offers the mesh path: DeviceMesh, DTensor, local_map,
-    implicit replication and the nccl backend."""
+    implicit replication, the differentiable functional collectives (the
+    all-to-all expert dispatch uses ``all_to_all_single_autograd``) and the
+    nccl backend."""
     import importlib
 
     import torch.distributed as dist
@@ -3539,6 +3558,13 @@ def mesh_tools(torch) -> dict:
                       ("torch.distributed.tensor.experimental", "implicit_replication")):
         try:
             have[name] = hasattr(importlib.import_module(mod), name)
+        except ImportError:
+            have[name] = False
+    for name in ("all_gather_tensor_autograd", "reduce_scatter_tensor_autograd",
+                 "all_to_all_single_autograd"):
+        try:
+            funcol = importlib.import_module("torch.distributed._functional_collectives")
+            have[name] = hasattr(funcol, name)
         except ImportError:
             have[name] = False
     have["nccl"] = dist.is_nccl_available()
@@ -3581,16 +3607,17 @@ def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def _mesh_serve(torch, cfg, mesh, params, prompt):
+def _mesh_serve(torch, cfg, mesh, params, prompt, policy="default"):
     """Prefill ``prompt`` into caches of MESH_SEQ + MESH_DECODE slots, then
-    MESH_DECODE greedy decode steps, one device or on ``mesh``: (every
-    logits, the caches, launches, prefill ms, decode ms a step)."""
+    MESH_DECODE greedy decode steps, one device or on ``mesh`` under
+    ``policy``: (every logits, the caches, launches, prefill ms, decode ms a
+    step)."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.steps import build_cell, place
 
     pshape = ShapeSpec("mesh-one-p", MESH_SEQ, MESH_BATCH, "prefill")
     dshape = ShapeSpec("mesh-one-d", MESH_SEQ + MESH_DECODE, MESH_BATCH, "decode")
-    kw = {"device": DEVICE} if mesh is None else {}
+    kw = {"device": DEVICE} if mesh is None else {"policy": policy}
     prefill, ab = build_cell(cfg, pshape, mesh, cache_len=dshape.seq_len, **kw)[:2]
     decode, dab = build_cell(cfg, dshape, mesh, **kw)[:2]
     put = (lambda t, spec: t) if mesh is None else (  # noqa: E731
@@ -3619,9 +3646,10 @@ def _mesh_serve(torch, cfg, mesh, params, prompt):
 def phase_mesh_one(torch, smi: str) -> dict:
     """The port's mesh path on the card as a world of one (``mesh-one``):
     ``launch.mesh.init_world_of_one`` on nccl, a (1, 1) ("data", "model")
-    mesh, ``launch.steps.build_cell`` (MESH_ARCHS, MESH_POLICIES,
-    MESH_STEPS of MESH_BATCH x MESH_SEQ, then Qwen2-0.5B's prefill and
-    MESH_DECODE decode steps).  Each run ``torch.equal`` to the one-device
+    mesh, ``launch.steps.build_cell`` (MESH_ARCHS under MESH_POLICIES, the
+    MoE config under MESH_MOE_POLICIES, MESH_STEPS of MESH_BATCH x
+    MESH_SEQ, then Qwen2-0.5B's prefill and MESH_DECODE decode steps under
+    each of MESH_SERVE_POLICIES).  Each run ``torch.equal`` to the one-device
     path on the same seed's weights and batches (losses, every parameter and
     moment after the steps; logits and caches), with the same launches of
     K3, K3's backward, K4 and K4's backward; ms a step and tok/s on both
@@ -3638,6 +3666,7 @@ def phase_mesh_one(torch, smi: str) -> dict:
     from repro_torch.training.train_loop import batch_to
 
     t_phase = time.perf_counter()
+    arch_seconds = {}
     tools = mesh_tools(torch)
     kind = torch.device(DEVICE).type
     backend = init_world_of_one(kind)
@@ -3655,7 +3684,8 @@ def phase_mesh_one(torch, smi: str) -> dict:
         losses, ms, counts, params, state = _mesh_train(torch, cfg, None, None, batches)
         one = {"losses": losses, "ms_per_step": ms, "launches": counts,
                "tokens_per_s": tokens / (min(ms) / 1e3)}
-        for policy in MESH_POLICIES:
+        t_arch = time.perf_counter()
+        for policy in (MESH_MOE_POLICIES if "moe" in cfg.layer_kinds else MESH_POLICIES):
             m_losses, m_ms, m_counts, m_params, m_state = _mesh_train(torch, cfg, mesh, policy,
                                                                       batches)
             same = {"losses": m_losses == losses,
@@ -3679,42 +3709,157 @@ def phase_mesh_one(torch, smi: str) -> dict:
             if not any(m_counts.values()):
                 problems.append((arch, policy, "no kernel launched"))
             del m_params, m_state
+        arch_seconds[arch] = time.perf_counter() - t_arch
         del params, state
         torch.cuda.empty_cache()
     cfg = get_config(DENSE_ARCH)
     prompt = torch.from_numpy(np.random.default_rng([SEED, 7]).integers(
         0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ), dtype=np.int32)).to(DEVICE)
-    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
-    one = _mesh_serve(torch, cfg, None, params, prompt)
-    pspec = build_cell(cfg, ShapeSpec("p", MESH_SEQ, MESH_BATCH, "prefill"), mesh)[1][0]
-    got = _mesh_serve(torch, cfg, mesh, place(params, pspec, mesh), prompt)
-    same = {"logits": all(torch.equal(a, b) for a, b in zip(one[0], got[0])),
-            "caches": all(torch.equal(a[k], b[k]) for a, b in zip(one[1], got[1]) for k in a),
-            "launches": one[2] == got[2]}
-    row = {"phase": "mesh-one-serve", "arch": DENSE_ARCH, "backend": backend,
-           "batch": MESH_BATCH, "prompt": MESH_SEQ, "decode_steps": MESH_DECODE,
-           "equal": same, "launches": got[2], "prefill_ms": got[3], "decode_ms": got[4],
-           "one_device": {"launches": one[2], "prefill_ms": one[3], "decode_ms": one[4]},
-           "card": smi}
-    emit(row)
-    if not all(same.values()) or not got[2]["flash_attention"]:
-        problems.append(("serve", same, got[2]))
-    del params, one, got
+    def weights():
+        return M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+
+    one = _mesh_serve(torch, cfg, None, weights(), prompt)
+    serve = {}
+    for policy in MESH_SERVE_POLICIES:
+        t_serve = time.perf_counter()
+        pspec = build_cell(cfg, ShapeSpec("p", MESH_SEQ, MESH_BATCH, "prefill"), mesh,
+                           policy)[1][0]
+        got = _mesh_serve(torch, cfg, mesh, place(weights(), pspec, mesh), prompt, policy)
+        same = {"logits": all(torch.equal(a, b) for a, b in zip(one[0], got[0])),
+                "caches": all(torch.equal(a[k], b[k]) for a, b in zip(one[1], got[1])
+                              for k in a),
+                "launches": one[2] == got[2]}
+        row = {"phase": "mesh-one-serve", "arch": DENSE_ARCH, "policy": policy,
+               "backend": backend, "batch": MESH_BATCH, "prompt": MESH_SEQ,
+               "decode_steps": MESH_DECODE, "equal": same, "launches": got[2],
+               "prefill_ms": got[3], "decode_ms": got[4],
+               "one_device": {"launches": one[2], "prefill_ms": one[3], "decode_ms": one[4]},
+               "seconds": time.perf_counter() - t_serve, "card": smi}
+        emit(row)
+        serve[policy] = row
+        if not all(same.values()) or not got[2]["flash_attention"]:
+            problems.append(("serve", policy, same, got[2]))
+        del got
+    del one
     torch.cuda.empty_cache()
     dist.destroy_process_group()
     seconds = time.perf_counter() - t_phase
-    emit({"phase": "mesh-one-summary", "seconds": seconds, "tools": tools, "card": smi})
+    emit({"phase": "mesh-one-summary", "seconds": seconds, "arch_seconds": arch_seconds,
+          "tools": tools, "card": smi})
     if problems:
         raise AssertionError(f"mesh-one: {problems}")
-    return {"rows": rows, "serve": row, "seconds": seconds, "tools": tools}
+    return {"rows": rows, "serve": serve, "seconds": seconds, "tools": tools}
 
 
 def mesh_launches(mesh_one: dict, kernel: str) -> dict:
     """``kernel``'s launches in each ``mesh-one`` run ("arch/policy", and
-    the serving run), each equal to its one-device run's."""
+    the serving runs "serve/policy"), each equal to its one-device run's."""
     out = {f"{r['arch']}/{r['policy']}": r["launches"][kernel] for r in mesh_one["rows"]}
-    out["serve"] = mesh_one["serve"]["launches"][kernel]
+    out.update({f"serve/{p}": r["launches"][kernel] for p, r in mesh_one["serve"].items()})
     return out
+
+
+def _no_near_ties(torch, x, router, k: int, gap: float):
+    """``x`` (B, S, d) on the host with every token whose top k + 1 gates
+    (float64) lie closer than ``gap`` redrawn until none does: a routing
+    the card and the host cannot break differently."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    r64 = router.double()
+    for _ in range(20):
+        gates = torch.softmax(x.double() @ r64, dim=-1)
+        top = torch.topk(gates, k + 1, dim=-1).values
+        near = ((top[..., :-1] - top[..., 1:]) < gap).any(-1)
+        if not near.any():
+            return x
+        x[near] = 0.5 * torch.randn((int(near.sum()), x.shape[-1]), generator=gen)
+    raise AssertionError("tokens kept near-tied gates after 20 redraws")
+
+
+def _within(torch, got, want, tol: float) -> dict:
+    """Elementwise |got - want| <= tol + tol·|want|: the worst error and its
+    share of that bound."""
+    err = (got.double() - want.double()).abs()
+    return {"max_abs_err": float(err.max()),
+            "worst_to_tolerance": float((err / (tol + tol * want.double().abs())).max())}
+
+
+def phase_moe_shards(torch, smi: str) -> dict:
+    """``moe-shards``: expert parallelism's shard functions at Granite's
+    published width on the card (MOE_SHARDS; no process group: the slices
+    and shards run in this process).  Per n_model: the slices'
+    ``_moe_core_padded`` summed in slice order against ``apply_moe_local``
+    on the card, ``_moe_a2a`` with ``stacked_exchange`` on the card against
+    the host's, each with its worst error, ms on the card (CUDA events;
+    the host's a2a by the clock, one call) and the local path's ms."""
+    import dataclasses as dc
+
+    from repro_torch.configs.base import get_config, pad_for_mesh
+    from repro_torch.models import moe as MoE
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False      # full f32 products, as on the host
+    base = dc.replace(get_config(MOE_ARCH), dtype="float32")
+    cfg = pad_for_mesh(base, max(MOE_SHARDS))
+    if cfg.experts_p != base.n_experts or any(cfg.experts_p % n for n in MOE_SHARDS):
+        raise AssertionError(f"{cfg.experts_p} experts do not split over {MOE_SHARDS}")
+    host = MoE.moe_init(torch.Generator().manual_seed(SEED), cfg, torch.float32, "cpu")
+    host = {k: v.detach() for k, v in host.items()}
+    card = {k: v.to(DEVICE) for k, v in host.items()}
+    B, S = MOE_SHARD_BATCH, MOE_SHARD_SEQ
+    x_host = 0.5 * torch.randn((B, S, cfg.d_model), generator=torch.Generator().manual_seed(
+        SEED))
+    x_host = _no_near_ties(torch, x_host, host["router"], cfg.experts_per_token,
+                           MOE_SHARD_GAP)
+    x = x_host.to(DEVICE)
+    C = MoE.moe_capacity(cfg, S)
+    with torch.no_grad():
+        local = MoE.apply_moe_local(card, cfg, x)
+        local_ms = cuda_ms(torch, lambda: MoE.apply_moe_local(card, cfg, x), iters=5)
+        rows = []
+        for n in MOE_SHARDS:
+            e_per = cfg.experts_p // n
+            slices = [{"router": card["router"], **{w: card[w][m * e_per:(m + 1) * e_per]
+                                                    for w in ("w_gate", "w_up", "w_down")}}
+                      for m in range(n)]
+
+            def gathered():
+                out = MoE._moe_core_padded(cfg, slices[0], x, C, 0, e_per, cfg.n_experts)
+                for m in range(1, n):
+                    out = out + MoE._moe_core_padded(cfg, slices[m], x, C, m * e_per, e_per,
+                                                     cfg.n_experts)
+                return out
+
+            summed = gathered()
+            gather = {**_within(torch, summed, local, MOE_SHARD_TOL),
+                      "ms": cuda_ms(torch, gathered, iters=5)}
+            xs = x.view(B, n, S // n, -1).transpose(0, 1)
+            a2a_card = MoE._moe_a2a(cfg, card, xs, n, e_per, MoE.stacked_exchange)
+            t0 = time.perf_counter()
+            a2a_host = MoE._moe_a2a(cfg, host, x_host.view(B, n, S // n, -1).transpose(0, 1),
+                                    n, e_per, MoE.stacked_exchange)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            a2a = {**_within(torch, a2a_card.cpu(), a2a_host, MOE_SHARD_TOL),
+                   "ms": cuda_ms(torch, lambda: MoE._moe_a2a(cfg, card, xs, n, e_per,
+                                                             MoE.stacked_exchange), iters=5),
+                   "host_ms": host_ms,
+                   "capacity": MoE.a2a_capacity(cfg, S // n),
+                   "differs_from_local": float((a2a_card.transpose(0, 1).reshape(B, S, -1)
+                                                - local).abs().max())}
+            row = {"phase": "moe-shards", "arch": MOE_ARCH, "n_model": n,
+                   "experts_per_shard": e_per, "batch": B, "seq": S, "d": cfg.d_model,
+                   "experts": cfg.n_experts, "k": cfg.experts_per_token, "capacity": C,
+                   "dtype": "float32", "tolerance": MOE_SHARD_TOL, "gather": gather,
+                   "a2a": a2a, "local_ms": local_ms, "card": smi}
+            emit(row)
+            rows.append(row)
+            del summed, a2a_card, a2a_host
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "moe-shards-summary", "seconds": seconds, "card": smi})
+    bad = [(r["n_model"], part) for r in rows for part in ("gather", "a2a")
+           if not r[part]["worst_to_tolerance"] <= 1.0]
+    if bad:
+        raise AssertionError(f"moe-shards beyond tolerance: {bad}")
+    return {"rows": rows, "seconds": seconds}
 
 
 def main() -> int:
@@ -3819,6 +3964,7 @@ def main() -> int:
     full_depth = run("train-full-depth", phase_train_full_depth, torch, smi, remat)
     pad_mesh = run("pad-mesh", phase_pad_mesh, torch, smi)
     mesh_one = run("mesh-one", phase_mesh_one, torch, smi)
+    run("moe-shards", phase_moe_shards, torch, smi)
     emit({"phase": "seconds", **seconds})
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

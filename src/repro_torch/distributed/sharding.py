@@ -30,8 +30,11 @@ collectives.  Code that must see plain tensors (the CUDA kernels take
 ``data_ptr()``s) runs on local shards through ``local_region``.
 
 Not ported, by design: ``shard_map`` (the reference's shim over jax's two
-spellings); its one caller, MoE's expert-parallel path, comes with the MoE
-policies.
+spellings); its one caller, MoE's expert-parallel path
+(``models.moe.apply_moe``), runs on local shards through ``local_region``
+with ``Partial`` outputs and an all-to-all.  Under every policy the
+expert weights sit at ``("experts", "fsdp", None)``: the reference's
+``P("model", "data", None)``.
 """
 
 from __future__ import annotations
@@ -391,19 +394,21 @@ def shard_range(x: DTensor, dim: int) -> tuple[int, int]:
     return offset, length
 
 
-def local_region(fn, args, in_axes, out_axes, out_placements=None):
+def local_region(fn, args, in_axes, out_axes, out_placements=None, in_placements=None):
     """``fn`` on the local shards of ``args``: plain tensors, never DTensors.
 
     Without rules (or a mesh) ``fn(*args)`` as it is.  Otherwise each arg
     (``None`` passes through) is redistributed to the placements of its
     logical axes in ``in_axes`` (``constrain``'s rule: a dim of size 1 or
-    one its mesh axes do not divide stays unsharded) and its local shard
+    one its mesh axes do not divide stays unsharded), or to its entry of
+    ``in_placements`` where that is not ``None``, and its local shard
     handed to ``fn``; each output of ``fn`` (a tensor or a tuple) is
     wrapped as a DTensor at the placements of ``out_axes`` (an axis some
     input could not shard left unsharded), or at the explicit
-    ``out_placements``.  The region is differentiable: on a mesh dim where
-    an input is replicated but an output is sharded, the work is split over
-    that dim, so the input's gradient there is a partial sum
+    ``out_placements`` (which may hold ``Partial()``: each rank's output a
+    term of the sum).  The region is differentiable: on a mesh dim where
+    an input is replicated but an output is sharded or partial, the work
+    is split over that dim, so the input's gradient there is a partial sum
     (``Partial``)."""
     rules = current_rules()
     if rules is None or rules.mesh is None:
@@ -413,26 +418,29 @@ def local_region(fn, args, in_axes, out_axes, out_placements=None):
         return fn(*args)
     mesh = rules.mesh
     single = not isinstance(out_axes, list)
-    specs, dropped = [], set()
-    for a, axes in zip(args, in_axes):
-        spec = None if a is None else _fit(rules, axes, a.shape)
-        dropped |= {name for name, e, f in zip(axes, rules.pspec(axes), spec or ())
+    in_placements = in_placements or [None] * len(args)
+    pls, dropped = [], set()
+    for a, axes, given in zip(args, in_axes, in_placements):
+        if a is None or given is not None:
+            pls.append(given)
+            continue
+        spec = _fit(rules, axes, a.shape)
+        dropped |= {name for name, e, f in zip(axes, rules.pspec(axes), spec)
                     if e is not None and f is None}
-        specs.append(spec)
+        pls.append(placements(mesh, spec))
     out_pl = out_placements or [
         placements(mesh, rules.pspec(tuple(None if n in dropped else n for n in axes)))
         for axes in ([out_axes] if single else out_axes)]
-    split = {m for pl in out_pl for m, p in enumerate(pl) if isinstance(p, Shard)}
+    split = {m for pl in out_pl for m, p in enumerate(pl) if not isinstance(p, Replicate)}
     local = []
-    for a, spec in zip(args, specs):
+    for a, pl in zip(args, pls):
         if a is None:
             local.append(None)
             continue
-        pl = placements(mesh, spec)
         grad_pl = [Partial() if isinstance(p, Replicate) and m in split else p
                    for m, p in enumerate(pl)]
         d = _as_dtensor(a, mesh)
-        if tuple(d.placements) != pl:
+        if tuple(d.placements) != tuple(pl):
             d = d.redistribute(mesh, pl)
         local.append(d.to_local(grad_placements=grad_pl))
     outs = fn(*local)

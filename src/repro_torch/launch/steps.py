@@ -21,11 +21,14 @@ replicated (and ZeRO off) where the global batch does not divide the
 data-parallel size.
 
 ``build_cell`` pads the config for the mesh's model axis
-(``pad_for_mesh``) and dispatches on the shape's kind.  The dense families
-(dense, frontend, SSM, hybrid) run under the ``default`` and ``fsdp``
-policies; MoE configs under a mesh and the ``fsdp_ep``, ``moe_noseq``,
-``moe_a2a`` and ``decode_kv`` policies raise ``NotImplementedError``
-(expert parallelism and the KV-head policy are not ported yet).
+(``pad_for_mesh``, with ``pad_kv`` under ``decode_kv``, as the reference
+does) and dispatches on the shape's kind.  Every family runs under each of
+the reference's six policies (``_MESH_POLICIES``): ``default``, ``fsdp``,
+``fsdp_ep``, ``moe_noseq``, ``moe_a2a`` (MoE layers through
+``models.moe.apply_moe``'s expert parallelism) and ``decode_kv`` (KV heads
+and caches sharded over ``model``).  A policy neither package knows raises
+``KeyError`` in ``make_rules_for``; a mesh that is not a ``DeviceMesh``
+raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -50,7 +53,12 @@ from repro_torch.training.train_loop import make_train_step
 __all__ = ["TensorSpec", "make_rules_for", "build_train", "build_prefill", "build_decode",
            "build_cell", "place"]
 
-_MESH_POLICIES = ("default", "fsdp")
+_MAKERS = {"default": make_default_rules, "fsdp": make_fsdp_rules,
+           "fsdp_ep": lambda mp: make_fsdp_rules(mp, ep=True),
+           "moe_noseq": make_moe_noseq_rules,
+           "moe_a2a": make_moe_a2a_rules,
+           "decode_kv": make_decode_kv_rules}
+_MESH_POLICIES = tuple(_MAKERS)
 
 
 class TensorSpec(NamedTuple):
@@ -69,12 +77,7 @@ def make_rules_for(mesh, global_batch: int, policy: str = "default") -> Rules:
     is replicated and ZeRO is off."""
     sizes = axis_sizes(mesh)
     multi_pod = "pod" in sizes
-    makers = {"default": make_default_rules, "fsdp": make_fsdp_rules,
-              "fsdp_ep": lambda mp: make_fsdp_rules(mp, ep=True),
-              "moe_noseq": make_moe_noseq_rules,
-              "moe_a2a": make_moe_a2a_rules,
-              "decode_kv": make_decode_kv_rules}
-    rules = makers[policy](multi_pod)
+    rules = _MAKERS[policy](multi_pod)
     rules.mesh = mesh
     dp = sizes.get("data", 1) * sizes.get("pod", 1)
     if policy == "fsdp":
@@ -262,17 +265,12 @@ def build_decode(cfg, shape, mesh=None, *, device="cuda", policy: str = "default
 
 
 def build_cell(cfg, shape, mesh=None, policy: str = "default", **kw):
-    """The step of a cell: ``cfg`` padded for the mesh's model axis, then
-    ``build_train`` / ``build_prefill`` / ``build_decode`` by
-    ``shape.kind``."""
+    """The step of a cell: ``cfg`` padded for the mesh's model axis (KV
+    heads too under ``decode_kv``), then ``build_train`` /
+    ``build_prefill`` / ``build_decode`` by ``shape.kind``."""
     if mesh is not None:
-        if policy not in _MESH_POLICIES:
-            raise NotImplementedError(f"policy {policy!r} is not ported yet (the MoE "
-                                      f"and KV-head policies); ported: {_MESH_POLICIES}")
-        if "moe" in cfg.layer_kinds:
-            raise NotImplementedError(f"{cfg.name} under a mesh needs expert parallelism, "
-                                      f"which is not ported yet")
-        cfg = pad_for_mesh(cfg, axis_sizes(mesh).get("model", 1))
+        cfg = pad_for_mesh(cfg, axis_sizes(mesh).get("model", 1),
+                           pad_kv=(policy == "decode_kv"))
     if shape.kind == "train":
         return build_train(cfg, shape, mesh, policy=policy, **kw)
     if shape.kind == "prefill":

@@ -27,6 +27,15 @@ PERTURBED = ("scale", "bias", "bq", "bk", "bv", "b_a", "b_i", "conv_b")
 # the reduced configs divide a model axis of 4; this one pads to it: heads
 # 6 -> 8 over 2 KV heads (G 3 -> 4) and vocab 130 -> 132
 PADDED = {"n_heads": 6, "n_kv_heads": 2, "d_head": 16, "vocab_size": 130}
+# MoE's reduced configs: 8 experts top-2 at capacity factor 8 (no choice is
+# dropped); DROPS drops choices, SIX pads 6 experts to 8 at tp 4 (the last
+# model rank holds only padding experts)
+DROPS = {"capacity_factor": 0.5}
+SIX = {"n_experts": 6, "capacity_factor": 0.5}
+MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
+MOE_POLICIES = ("default", "fsdp_ep", "moe_noseq", "moe_a2a")
+# the layer also under fsdp, whose batch shards over model as well
+LAYER_POLICIES = MOE_POLICIES + ("fsdp",)
 CASES = {"qwen2-0.5b": ("qwen2-0.5b", {}), "recurrentgemma-2b": ("recurrentgemma-2b", {}),
          "mamba2-130m": ("mamba2-130m", {}), "internvl2-1b": ("internvl2-1b", {}),
          "qwen2-0.5b-padded": ("qwen2-0.5b", PADDED)}
@@ -236,7 +245,121 @@ def checkpoint(tmp):
     return out
 
 
-JOBS = {"mesh24": mesh24, "uneven": uneven, "checkpoint": checkpoint}
+def _grad_share(a, b) -> float:
+    """max|a - b| over (1e-4 max|a| + 1e-6): at most 1 within
+    ``tests/test_torch_training.py``'s gradient tolerance."""
+    return float((a - b).abs().max() / (1e-4 * a.abs().max() + 1e-6))
+
+
+def _moe_layer(cfg, mesh, policy, B=8, S=16):
+    """``models.moe.apply_moe`` on ``mesh`` under ``policy``'s rules against
+    its one-process oracle on the same weights and tokens: the all-to-all
+    path against ``_moe_a2a`` with ``stacked_exchange`` (capacity per
+    source shard), the others against ``apply_moe_local``.  (output's
+    max|Δ| over max|out|, each gradient's share of its tolerance: the
+    tokens, router and expert weights under loss = sum(out * r))."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import placements, use_rules
+    from repro_torch.launch.steps import make_rules_for
+    from repro_torch.models import moe as MoE
+
+    rules = make_rules_for(mesh, B, policy)
+    n = mesh.shape[mesh.mesh_dim_names.index("model")]
+    g = torch.Generator().manual_seed(5)
+    full = {k: v.detach().clone() for k, v in MoE.moe_init(g, cfg, torch.float32,
+                                                            "cpu").items()}
+    x = 0.5 * torch.randn((B, S, cfg.d_model), generator=g)
+    r = torch.randn((B, S, cfg.d_model), generator=g)
+    ref = {k: v.clone().requires_grad_(True) for k, v in full.items()}
+    xr = x.clone().requires_grad_(True)
+    if policy == "moe_a2a":
+        xs = xr.view(B, n, S // n, -1).transpose(0, 1)
+        want = MoE._moe_a2a(cfg, ref, xs, n, cfg.experts_p // n).transpose(0, 1)
+        want = want.reshape(B, S, -1)
+    else:
+        want = MoE.apply_moe_local(ref, cfg, xr)
+    (want * r).sum().backward()
+    specs = MoE.moe_specs(cfg)
+    pm = {k: distribute_tensor(v, mesh, placements(mesh, rules.pspec(specs[k])),
+                               src_data_rank=None).requires_grad_(True)
+          for k, v in full.items()}
+    xm = distribute_tensor(x, mesh, placements(mesh, rules.pspec(("batch", "act_seq", None))),
+                           src_data_rank=None).requires_grad_(True)
+    with use_rules(rules):
+        got = MoE.apply_moe(pm, cfg, xm)
+        placed = list(got.placements) == list(xm.placements)
+        (got * r).sum().full_tensor().backward()
+    grads = {k: _grad_share(ref[k].grad, pm[k].grad.full_tensor()) for k in full}
+    grads["x"] = _grad_share(xr.grad, xm.grad.full_tensor())
+    return {"out": _rel(want.detach(), got.full_tensor().detach()), "grads": grads,
+            "placed": placed}
+
+
+def moe24(**_):
+    """On a (2, 4) mesh: the reduced Granite and Qwen3-MoE under the four
+    MoE policies (the forward's logits and 3 training steps against one
+    device), the MoE layer with drops and with padded experts under each
+    dispatch (output and gradients against its oracle), and ``decode_kv``
+    on the reduced Qwen2 whose KV heads pad (``PADDED``: KV 2 -> 4, heads 6
+    -> 12): prefill and decode against one device's run of the same
+    padded config."""
+    from repro_torch.configs.base import ShapeSpec, pad_for_mesh
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import build_cell, place
+    from repro_torch.models import model as M
+
+    mesh = make_test_mesh((2, 4), device_type="cpu")
+    out = {"forward": {}, "train": {}, "layer": {}}
+    for arch in MOE_ARCHS:
+        cfg0, cfg = _cfg(arch, 4)
+        tokens = _batch(cfg, 4, 32)["tokens"]
+        with torch.no_grad():
+            plain = M.forward(_params(cfg), cfg, tokens)
+        for policy in MOE_POLICIES:
+            _, (pspec, bspec), rules = build_cell(cfg0, ShapeSpec("p", 32, 4, "prefill"),
+                                                  mesh, policy)
+            with torch.no_grad(), use_rules(rules):
+                pm = place(_params(cfg), pspec, mesh)
+                sharded = _full(M.forward(pm, cfg, place(tokens, bspec["tokens"], mesh)))
+            out["forward"][f"{arch}/{policy}"] = _rel(plain, sharded)
+            out["train"][f"{arch}/{policy}"] = _train(cfg0, cfg, mesh, 8, 32, 3, policy)
+    for name, changes in (("drops", DROPS), ("six", SIX)):
+        _, cfg = _cfg("granite-moe-3b-a800m", 4, **changes)
+        for policy in LAYER_POLICIES:
+            out["layer"][f"{name}/{policy}"] = _moe_layer(cfg, mesh, policy)
+
+    cfg0, _ = _cfg("qwen2-0.5b", 1, **PADDED)
+    cfg = pad_for_mesh(cfg0, 4, pad_kv=True)
+    tokens = _batch(cfg, 8, 16)["tokens"]
+    errs = []
+    with torch.no_grad():
+        p1 = _params(cfg)
+        logits, caches = M.prefill(p1, cfg, tokens, cache_len=20)
+        pf, (pspec, bspec), _ = build_cell(cfg0, ShapeSpec("p", 16, 8, "prefill"), mesh,
+                                           "decode_kv", cache_len=20)
+        dec, (_, cspec, tspec), rules = build_cell(cfg0, ShapeSpec("d", 20, 8, "decode"),
+                                                   mesh, "decode_kv")
+        pm = place(_params(cfg), pspec, mesh)
+        lm, cm = pf(pm, place({"tokens": tokens}, bspec, mesh))
+        V = cfg.vocab_size
+        errs.append(_rel(logits[:, :V], _full(lm)[:, :V]))
+        tok = logits.argmax(-1).int()
+        for i in range(4):
+            logits, caches = M.decode_step(p1, cfg, tok, caches, 16 + i)
+            lm, cm = dec(pm, cm, place(tok, tspec, mesh), 16 + i)
+            errs.append(_rel(logits[:, :V], _full(lm)[:, :V]))
+            tok = logits.argmax(-1).int()
+        errs.append(max(_rel(a.float(), _full(b).float()) for c, d in zip(caches, cm)
+                        for a, b in zip(c.values(), d.values())))
+    out["decode_kv"] = {"errs": errs, "heads": [cfg.heads_p, cfg.kv_heads_p],
+                        "cache_placements": [str(p) for p in cm[0]["k"].placements],
+                        "wk_placements": [str(p) for p in pm.stack[0]["attn"]["wk"].placements]}
+    return out
+
+
+JOBS = {"mesh24": mesh24, "uneven": uneven, "checkpoint": checkpoint, "moe24": moe24}
 
 
 def _rank(rank: int, world: int, store: str, job: str, tmp: str) -> None:

@@ -162,9 +162,10 @@ def test_every_remat_policy_gives_the_same_bits_under_a_mesh(mesh, arch, remat):
 
 # -- serving -------------------------------------------------------------------------
 
-def _serve(tcfg, tree, tokens, mesh, n_decode):
+def _serve(tcfg, tree, tokens, mesh, n_decode, policy="default"):
     """Prefill ``tokens`` into caches of S + n_decode slots, then greedy
-    decode steps: (every logits, the caches)."""
+    decode steps (on ``mesh`` under ``policy``): (every logits, the
+    caches)."""
     shape = ShapeSpec("p", tokens.shape[1], B, "prefill")
     dshape = ShapeSpec("d", tokens.shape[1] + n_decode, B, "decode")
     params = _params(tcfg, tree)
@@ -174,9 +175,9 @@ def _serve(tcfg, tree, tokens, mesh, n_decode):
             decode, _ = build_cell(tcfg, dshape, None, device="cpu")
             put = lambda t, spec: t  # noqa: E731
         else:
-            prefill, (pspec, bspec), _ = build_cell(tcfg, shape, mesh,
+            prefill, (pspec, bspec), _ = build_cell(tcfg, shape, mesh, policy,
                                                     cache_len=dshape.seq_len)
-            decode, (_, cspec, tspec), _ = build_cell(tcfg, dshape, mesh)
+            decode, (_, cspec, tspec), _ = build_cell(tcfg, dshape, mesh, policy)
             params = place(params, pspec, mesh)
             put = lambda t, spec: place(t, spec, mesh)  # noqa: E731
         logits, caches = prefill(params, put({"tokens": tokens}, None if mesh is None
@@ -279,12 +280,22 @@ def test_train_cli_mesh_1x1_resumes_bit_exactly(mesh, tmp_path):
 
 
 def test_build_cell_refuses_moe_and_the_unported_policies(mesh):
+    """What ``build_cell`` still refuses, each as the reference raises it: a
+    policy that neither package knows (``KeyError`` from ``make_rules_for``,
+    reference ``steps.py:46``) and a mesh that is not a ``DeviceMesh``
+    (``TypeError``).  MoE configs and the six policies are all accepted
+    now: the MoE config and each policy here build their steps."""
     shape = ShapeSpec("t", S, B, "train")
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        build_cell(get_config("granite-moe-3b-a800m", reduced=True), shape, mesh)
-    for policy in ("fsdp_ep", "moe_noseq", "moe_a2a", "decode_kv"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_cell(get_config("qwen2-0.5b", reduced=True), shape, mesh, policy)
+    granite = get_config("granite-moe-3b-a800m", reduced=True)
+    with pytest.raises(KeyError, match="zero3"):
+        build_cell(granite, shape, mesh, "zero3")
+    with pytest.raises(KeyError, match="zero3"):
+        jax_steps.make_rules_for(jax.make_mesh((1, 1), ("data", "model")), B, "zero3")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        build_cell(granite, shape, "1x1")
+    for policy in ("default", "fsdp", "fsdp_ep", "moe_noseq", "moe_a2a", "decode_kv"):
+        step, _, rules = build_cell(granite, shape, mesh, policy)
+        assert callable(step) and rules.mesh is mesh
 
 
 def test_abstract_inputs_carry_placements_and_the_step_checks_them(mesh):

@@ -122,6 +122,44 @@ def test_tree_pspecs_and_zero_specs_equal_the_reference(arch, tp):
             assert TS.zero_specs(specs, shapes, trules, tmesh) == want
 
 
+MOE_CASES = [pytest.param(arch, policy, id=f"{arch}-{policy}")
+             for arch in ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b") for policy in POLICIES]
+
+
+@pytest.mark.parametrize("arch,policy", MOE_CASES)
+def test_expert_placements_under_every_policy_equal_the_reference(arch, policy):
+    """The MoE configs at published width, padded for a model axis of 16
+    (with ``pad_kv`` under ``decode_kv``, as ``build_cell`` pads): every
+    parameter and cache spec and the moments' ZeRO specs equal the
+    reference's under each policy; the expert weights resolve to the
+    reference's ``shard_map`` in-spec ``P("model", "data", None)`` (the
+    ``pod`` axis left out) and the router to ``P(None, None)``, and their
+    DTensor placements shard experts over ``model`` and d over ``data``."""
+    pad_kv = policy == "decode_kv"
+    jcfg = jax_pad_for_mesh(jax_get_config(arch), 16, pad_kv=pad_kv)
+    tcfg = pad_for_mesh(get_config(arch), 16, pad_kv=pad_kv)
+    specs, cspecs = JM.param_specs(jcfg), JM.cache_specs(jcfg)
+    shapes = JS.shapes_of(jax.eval_shape(lambda: JM.init_params(jax.random.PRNGKey(0), jcfg)))
+    named = TM.named_param_specs(tcfg)
+    for shape in [(16, 16), (2, 16, 16)]:
+        jmesh, tmesh = _meshes(shape)
+        jrules = jax_steps.make_rules_for(jmesh, 256, policy)
+        trules = torch_steps.make_rules_for(tmesh, 256, policy)
+        assert TS.tree_pspecs(specs, trules) == _plain(JS.tree_pspecs(specs, jrules))
+        assert TS.tree_pspecs(cspecs, trules) == _plain(JS.tree_pspecs(cspecs, jrules))
+        assert TS.zero_specs(specs, shapes, trules, tmesh) == JS.zero_specs(specs, shapes,
+                                                                            jrules, jmesh)
+        experts = {n: trules.pspec(s) for n, s in named.items() if n.endswith(
+            ("ffn.w_gate", "ffn.w_up", "ffn.w_down"))}
+        routers = {n: trules.pspec(s) for n, s in named.items() if n.endswith("ffn.router")}
+        assert len(experts) == 3 * tcfg.n_layers and len(routers) == tcfg.n_layers
+        assert set(experts.values()) == {("model", "data", None)}
+        assert set(routers.values()) == {(None, None)}
+        pl = TS.placements(tmesh, ("model", "data", None))
+        assert pl[-1] == Shard(0) and pl[-2] == Shard(1)
+        assert all(p == Replicate() for p in pl[:-2])
+
+
 def test_zero_specs_of_the_ports_named_parameters():
     """On the port's per-layer tensors: a large leaf gets ``opt`` on its
     first unsharded dim divisible by the data axes, a small one or one
