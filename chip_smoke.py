@@ -218,6 +218,14 @@ microbatch and its backward once; ``forward_launches``);
   ``torch.equal`` to the one-device path on the same weights and batches,
   K3's, K3's backward's, K4's and K4's backward's launches equal to its;
   ms a step and tok/s on the mesh and on one device, and the seconds;
+* ``dryrun`` — ``python -m repro_torch.launch.dryrun --skip-multipod`` for
+  Qwen2-0.5B ``train_4k``, Mamba2-130M ``prefill_32k`` and
+  Granite-3.0-3B-A800M ``decode_32k`` at full depth and published width on
+  the (16, 16) mesh of 256 fake ranks on the meta device, one subprocess a
+  cell started together, with no card visible to them: each record OK,
+  with the reference's keys, and the shape-only K3/K4 calls the layers
+  imply; each cell's roofline terms, per-device FLOPs against
+  ``model_flops``, and the phase's seconds;
 
 the serve phases, ``train-qwen2``, ``train-mamba2`` and ``train-full-depth``
 also print ``mfu``: ``roofline.analysis.model_flops`` (6·N·D a training
@@ -543,6 +551,17 @@ MESH_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_
 # (atol and rtol, tests/test_moe.py's)
 MOE_SHARDS = (2, 4, 8)
 MOE_SHARD_BATCH, MOE_SHARD_SEQ, MOE_SHARD_GAP, MOE_SHARD_TOL = 4, 1_024, 1e-5, 2e-4
+# dryrun: repro_torch.launch.dryrun on the single-pod (16, 16) mesh (256 fake
+# ranks, the meta device) at full depth and published width, one subprocess a
+# cell, all started together, with no card visible to them
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("mamba2-130m", "prefill_32k"),
+                ("granite-moe-3b-a800m", "decode_32k"))
+DRYRUN_TIMEOUT_S = 120
+# the reference's record keys (src/repro/launch/dryrun.py:74-133), and the port's
+DRYRUN_KEYS = ("arch", "shape", "kind", "policy", "params_b", "active_params_b", "status",
+               "single_pod", "cost", "roofline", "model_flops_per_dev",
+               "useful_flops_ratio", "kernel_calls")
+DRYRUN_POD_KEYS = ("label", "compile_s", "memory", "memory_floor_bytes")
 # mfu: model_flops (6·N·D training, 2·N·D a forward token; N the logical
 # parameters) over the seconds at the bf16 peak
 MFU_NOTE = "6·N·D (2·N·D serving) leaves out attention's score FLOPs"
@@ -690,14 +709,6 @@ def launches(kernel: str) -> int:
     return next(c[kernel] for c in _counters() if kernel in c)
 
 
-def visible_pairs(s: int, window: int = 0) -> int:
-    """(query, key) pairs that causal attention over S positions sees, with
-    a local ``window`` (0: none): min(i + 1, window) keys for query i."""
-    if not window or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def product_ms(ops: float, bytes_per_el: int) -> float:
     """ms of ``ops`` matrix-product operations at the rate of the input type
     on the tensor cores: bf16 at its peak; f32 in 3xTF32, three TF32
@@ -709,11 +720,14 @@ def fa_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int, window: int 
     """(least ms, what bounds it, ms of the same operations at the f32
     CUDA-core rate) of causal GQA attention: q, k, v read once and the
     output written once at the HBM rate, against the two products over the
-    unmasked (query, key) pairs of each q row (``visible_pairs``; 2 Dh
+    unmasked (query, key) pairs of each q row (its ``visible_pairs``; 2 Dh
     operations each for QK^T and for PV, a multiply-add counted as 2) on the
-    tensor cores (``product_ms``: bf16, or f32 in 3xTF32)."""
-    t_bytes = (2 * bh + 2 * bkv) * s * dh * bytes_per_el / peak("hbm_bw") * 1e3
-    ops = 4.0 * bh * visible_pairs(s, window) * dh
+    tensor cores (``product_ms``: bf16, or f32 in 3xTF32).  The counts are
+    ``repro_torch.roofline.kernels.flash_attention_work``'s."""
+    from repro_torch.roofline.kernels import flash_attention_work
+
+    ops, nbytes = flash_attention_work(bh, bkv, s, dh, bytes_per_el, window)
+    t_bytes = nbytes / peak("hbm_bw") * 1e3
     t_ops = product_ms(ops, bytes_per_el)
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, ops / peak("f32_flops") * 1e3
@@ -2034,15 +2048,12 @@ def ssd_bound(b: int, s: int, h: int, p: int, n: int, with_h0: bool):
     routes: all on the f32 CUDA cores, or the four products on the TF32
     tensor cores three times over (2e-4 is beyond one TF32 pass, not beyond
     three: hi/lo splits of both operands) and the decays on the CUDA
-    cores."""
-    t_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
-                   + (2 if with_h0 else 1) * b * h * p * n) / peak("hbm_bw")
-    products = rest = 0.0
-    for s0 in range(0, s, SSD_Q):
-        q = min(SSD_Q, s - s0)
-        pairs = q * (q + 1) / 2
-        products += b * pairs * 2 * n + b * h * (pairs * 2 * p + 4 * q * p * n)
-        rest += b * h * pairs
+    cores.  The counts are ``repro_torch.roofline.kernels.ssd_scan_work``'s
+    and ``ssd_scan_products``'."""
+    from repro_torch.roofline.kernels import ssd_scan_products, ssd_scan_work
+
+    t_bytes = ssd_scan_work(b, s, h, p, n, with_h0, SSD_Q)[1] / peak("hbm_bw")
+    products, rest = ssd_scan_products(b, s, h, p, n, SSD_Q)
     t_cores = (products + rest) / peak("f32_flops")
     t_tf32 = 3 * products / peak("tf32_flops") + rest / peak("f32_flops")
     t_ops = min(t_cores, t_tf32)
@@ -2138,18 +2149,13 @@ def ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, with_h0: bool):
     pairs (2 N each); per head and chunk on those pairs dy (dt x)^T and M^T
     dy (2 P each), LD B and LD^T C (2 N each) and the decays (3 each), and
     the four full products dy h_in, (dt x) R, B R^T and the local adjoint
-    (2 q P N each).  The faster route of ``ssd_bound``'s two."""
-    chunks = -(-s // SSD_Q)
-    spans = -(-chunks // 4)                  # of the saved states, 4 chunks each
-    t_bytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 2 * h + 4 * b * s * n
-                   + b * h * spans * p * n + (2 if with_h0 else 0) * b * h * p * n
-                   ) / peak("hbm_bw")
-    products = rest = 0.0
-    for s0 in range(0, s, SSD_Q):
-        q = min(SSD_Q, s - s0)
-        pairs = q * (q + 1) / 2
-        products += b * pairs * 2 * n + b * h * (pairs * (4 * p + 4 * n) + 8 * q * p * n)
-        rest += 3 * b * h * pairs
+    (2 q P N each).  The faster route of ``ssd_bound``'s two.  The counts
+    are ``repro_torch.roofline.kernels.ssd_scan_bwd_work``'s and
+    ``ssd_scan_bwd_products``'."""
+    from repro_torch.roofline.kernels import ssd_scan_bwd_products, ssd_scan_bwd_work
+
+    t_bytes = ssd_scan_bwd_work(b, s, h, p, n, with_h0, SSD_Q)[1] / peak("hbm_bw")
+    products, rest = ssd_scan_bwd_products(b, s, h, p, n, SSD_Q)
     t_cores = (products + rest) / peak("f32_flops")
     t_tf32 = 3 * products / peak("tf32_flops") + rest / peak("f32_flops")
     t_ops = min(t_cores, t_tf32)
@@ -2673,9 +2679,12 @@ def fa_bwd_bound(bh: int, bkv: int, s: int, dh: int, bytes_per_el: int, window: 
     dq, dk, dv written once at the HBM rate, against five products over the
     visible (query, key) pairs of each q row (QK^T, dO V^T, P^T dO, dS K,
     dS^T Q; 2 Dh operations each, 2.5x the forward's two) on the tensor
-    cores (``product_ms``: bf16, or f32 in 3xTF32)."""
-    t_bytes = ((4 * bh + 4 * bkv) * s * dh * bytes_per_el + 4 * bh * s) / peak("hbm_bw") * 1e3
-    ops = 10.0 * bh * visible_pairs(s, window) * dh
+    cores (``product_ms``: bf16, or f32 in 3xTF32).  The counts are
+    ``repro_torch.roofline.kernels.flash_attention_bwd_work``'s."""
+    from repro_torch.roofline.kernels import flash_attention_bwd_work
+
+    ops, nbytes = flash_attention_bwd_work(bh, bkv, s, dh, bytes_per_el, window)
+    t_bytes = nbytes / peak("hbm_bw") * 1e3
     t_ops = product_ms(ops, bytes_per_el)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             ops / peak("f32_flops") * 1e3)
@@ -3862,6 +3871,100 @@ def phase_moe_shards(torch, smi: str) -> dict:
     return {"rows": rows, "seconds": seconds}
 
 
+def dryrun_kernel_calls(cfg, kind: str) -> dict:
+    """The shape-only K3/K4 calls a step of ``kind`` makes at ``cfg``'s
+    layers: a prefill one K3 call an attention layer (``attn``,
+    ``local_attn``, ``moe``) and one K4 call an ``ssm`` layer; a training
+    step's forward the same, twice in a ``block_pattern`` layer that its
+    ``remat`` recomputes (the tail's layers run unwrapped), and one backward
+    a layer; a decode step neither (it attends by einsum and scans by the
+    recurrence)."""
+    kernel = {"attn": "flash_attention", "local_attn": "flash_attention",
+              "moe": "flash_attention", "ssm": "ssd_scan"}
+    body = cfg.n_groups * len(cfg.block_pattern)
+    calls: dict = {}
+    if kind == "decode":
+        return calls
+    for i, layer in enumerate(cfg.layer_kinds):
+        name = kernel.get(layer)
+        if name is None:
+            continue
+        forward = 2 if kind == "train" and cfg.remat != "none" and i < body else 1
+        calls[name] = calls.get(name, 0) + forward
+        if kind == "train":
+            calls[name + "_bwd"] = calls.get(name + "_bwd", 0) + 1
+    return dict(sorted(calls.items()))
+
+
+def phase_dryrun(smi: str) -> dict:
+    """``dryrun``: ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS
+    with ``--skip-multipod``, one subprocess a cell (this process holds the
+    ``mesh-one`` nccl world; the dry run makes its own fake group of 256
+    ranks), all started together with ``CUDA_VISIBLE_DEVICES`` empty: the
+    dry run touches no device.  Each record must be OK, hold the reference's
+    keys, and show the K3/K4 calls the config's layers imply
+    (``dryrun_kernel_calls``); prints each cell's roofline terms, FLOPs
+    against ``model_flops`` and seconds, and the phase's seconds."""
+    import tempfile
+
+    from repro_torch.configs.base import SHAPES, get_config
+
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    problems, rows = [], []
+    with tempfile.TemporaryDirectory() as out:
+        procs = [(arch, shape, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--skip-multipod", "--out", out], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)) for arch, shape in DRYRUN_CELLS]
+        for arch, shape, proc in procs:
+            try:
+                stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                problems.append(f"{arch} {shape}: no end within {DRYRUN_TIMEOUT_S} s")
+                continue
+            seconds = time.perf_counter() - t_phase
+            if proc.returncode != 0 or "SUMMARY: 1 OK, 0 SKIP, 0 FAIL / 1" not in stdout:
+                problems.append(f"{arch} {shape}: exit {proc.returncode}: "
+                                f"{stdout[-2000:]} {stderr[-2000:]}")
+                continue
+            with open(os.path.join(out, f"{arch}__{shape}.json")) as f:
+                rec = json.load(f)
+            want = dryrun_kernel_calls(get_config(arch), SHAPES[shape].kind)
+            missing = [k for k in DRYRUN_KEYS if k not in rec] + [
+                f"single_pod.{k}" for k in DRYRUN_POD_KEYS if k not in rec.get("single_pod", {})]
+            if rec.get("status") != "OK" or missing or rec.get("kernel_calls") != want:
+                problems.append(f"{arch} {shape}: status {rec.get('status')}, missing "
+                                f"{missing}, kernel_calls {rec.get('kernel_calls')} not {want}: "
+                                f"{rec.get('error')}")
+                continue
+            r = rec["roofline"]
+            row = {"phase": "dryrun", "arch": arch, "shape": shape, "mesh": [16, 16],
+                   "status": rec["status"], "kernel_calls": rec["kernel_calls"],
+                   "compile_s": rec["single_pod"]["compile_s"],
+                   "memory_floor_bytes": rec["single_pod"]["memory_floor_bytes"],
+                   "argument_size_in_bytes": rec["single_pod"]["memory"][
+                       "argument_size_in_bytes"],
+                   "flops_per_dev": rec["cost"]["flops_per_dev"],
+                   "bytes_per_dev": rec["cost"]["bytes_per_dev"],
+                   "collective_bytes_per_dev": rec["cost"]["collective_bytes_per_dev"],
+                   "model_flops_per_dev": rec["model_flops_per_dev"],
+                   "useful_flops_ratio": rec["useful_flops_ratio"],
+                   **{k: r[k] for k in ("compute_s", "memory_s", "collective_s",
+                                        "memory_floor_s", "collective_wire_s", "bottleneck",
+                                        "bottleneck_calibrated")},
+                   "subprocess_s": seconds, "card": smi}
+            emit(row)
+            rows.append(row)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "dryrun-summary", "cells": len(rows), "seconds": seconds, "card": smi})
+    if problems:
+        raise AssertionError(f"dryrun: {problems}")
+    return {"rows": rows, "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -3965,6 +4068,7 @@ def main() -> int:
     pad_mesh = run("pad-mesh", phase_pad_mesh, torch, smi)
     mesh_one = run("mesh-one", phase_mesh_one, torch, smi)
     run("moe-shards", phase_moe_shards, torch, smi)
+    run("dryrun", phase_dryrun, smi)
     emit({"phase": "seconds", **seconds})
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -377,13 +377,14 @@ def replicated(x, dims: tuple):
     return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
 
 
-def shard_range(x: DTensor, dim: int) -> tuple[int, int]:
-    """(offset, length) of this rank's shard of ``x`` along ``dim``, for an
-    even split (DTensor's nesting: mesh dims left to right)."""
+def shard_range(x: DTensor, dim: int, pl=None) -> tuple[int, int]:
+    """(offset, length) of this rank's shard of ``x`` along ``dim`` at its
+    placements (or at ``pl``), for an even split (DTensor's nesting: mesh
+    dims left to right)."""
     mesh, size = x.device_mesh, x.shape[dim]
     coord = mesh.get_coordinate()
     offset, length = 0, size
-    for m, p in enumerate(x.placements):
+    for m, p in enumerate(x.placements if pl is None else pl):
         if isinstance(p, Shard) and p.dim == dim:
             n = mesh.size(m)
             if length % n:

@@ -36,6 +36,14 @@ outputs, never into a tensor the selective policy keeps.  Otherwise
 (serving, or ``torch.no_grad``) lse is not written and nothing is saved.
 The backward takes every Dh the forward takes.  On the CPU, autograd
 differentiates ``mha_ref`` itself.
+
+Meta tensors take a shape-only path, and only inside the dry run's count
+(a ``roofline.counter.CostCounter`` on the dispatch-mode stack; elsewhere
+they raise as any other device does): the forward, the Function and the
+backward run every check the kernels run, launch nothing, return meta
+outputs of the kernels' shapes and dtypes, and add their work
+(``roofline.kernels``) to the counter, which counts the calls by name.
+``LAUNCHES``, ``LSE_WRITES`` and ``BWD_ROUTES`` stay untouched.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.roofline.counter import active, shape_only
+from repro_torch.roofline.kernels import flash_attention_bwd_work, flash_attention_work
 
 __all__ = ["flash_attention", "flash_attention_bwd", "smem_bytes", "bwd_smem_bytes",
            "LAUNCHES", "LSE_WRITES", "BWD_ROUTES", "MAX_HEAD_DIM", "MAX_BWD_HEAD_DIM"]
@@ -141,7 +151,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return mha_ref(q, k, v, causal=True, window=window)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not shape_only(q):
         raise ValueError(f"no kernel for tensors on {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, window)
@@ -156,6 +166,10 @@ def _forward(q, k, v, window: int, with_lse: bool):
         raise ValueError(f"S={s} exceeds the kernel's grid ({_MAX_GRID_Y} tiles of {_BQ})")
     out = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device) if with_lse else None
+    if q.device.type == "meta":
+        active().add_kernel("flash_attention", *flash_attention_work(
+            bh, k.shape[0], s, dh, q.element_size(), window, with_lse))
+        return out, lse
     err = _kernels().fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), bh, k.shape[0], s, dh, window,
@@ -175,9 +189,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, window: int = 0):
     inputs' dtype, f32-accumulated; dk and dv sum the G heads of each kv row
     in a fixed order (no atomics), so two calls give the same bits."""
     _check(q, k, v, True, window)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not shape_only(q):
         raise ValueError(f"the backward kernel runs on the card; got tensors on {q.device}")
     bh, s, dh = q.shape
+    if dh > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"Dh={dh} outside the backward's 1..{MAX_BWD_HEAD_DIM}")
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (bh, s):
         raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
                          f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
@@ -188,6 +204,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, window: int = 0):
         raise ValueError("out, dout and lse must be contiguous and on q's device")
     if -(-s // _BQ) > _MAX_GRID_Y:
         raise ValueError(f"S={s} exceeds the backward's grid ({_MAX_GRID_Y} tiles of {_BQ})")
+    if q.device.type == "meta":
+        active().add_kernel("flash_attention_bwd", *flash_attention_bwd_work(
+            bh, k.shape[0], s, dh, q.element_size(), window))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib, code, dev = _bwd_kernels(), _DTYPE_CODES[q.dtype], q.device.index
     n_scratch = lib.fa_bwd_scratch_floats(bh, k.shape[0], s, dh, code, dev)
     if n_scratch < 0:

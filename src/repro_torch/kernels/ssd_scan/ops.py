@@ -35,6 +35,15 @@ the recomputed y and span states are the first forward's bits, saved with
 the same shapes, dtypes and device; every output and scratch is allocated
 fresh, never a tensor the selective policy keeps.  On the CPU, autograd
 differentiates ``ssd_chunked``.
+
+Meta tensors take a shape-only path, and only inside the dry run's count
+(a ``roofline.counter.CostCounter`` on the dispatch-mode stack; elsewhere
+they raise as any other device does): the forward, the Function and the
+backward run every check the kernels run, launch nothing, return meta
+outputs of the kernels' shapes (y, the final state, the span states; the
+six gradients), and add their work (``roofline.kernels``) to the counter,
+which counts the calls by name.  ``LAUNCHES`` and ``STATES_KEPT`` stay
+untouched.
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline.counter import active, shape_only
+from repro_torch.roofline.kernels import ssd_scan_bwd_work, ssd_scan_work
 
 __all__ = ["ssd_scan", "ssd_scan_bwd", "chunk_length", "smem_bytes", "LAUNCHES",
            "STATES_KEPT", "MAX_STATE", "PHASES", "BWD_PHASES"]
@@ -136,7 +147,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
         from repro_torch.models.ssm import ssd_chunked
         y, h = ssd_chunked(x, dt, A, Bm, Cm, chunk, h0)
         return y, h.contiguous()        # as the kernel returns it
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not shape_only(x):
         raise ValueError(f"no kernel for tensors on {x.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, h0)):
@@ -156,6 +167,10 @@ def _forward(x, dt, A, Bm, Cm, h0, keep_states: bool):
     cbt = torch.empty((B, n_chunks, Q, Q), dtype=torch.float32, device=x.device)
     states = torch.empty((B * H, n_spans, P, N), dtype=torch.float32, device=x.device)
     logdec = torch.empty((B * H, n_spans), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        active().add_kernel("ssd_scan", *ssd_scan_work(B, S, H, P, N, h0 is not None, Q,
+                                                       with_states=keep_states))
+        return y, h, states if keep_states else None
     err = _kernels().ssd_forward(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(), cbt.data_ptr(),
@@ -179,7 +194,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, states, dh=None):
     over heads, positions and batch rows in a fixed order (no atomics), so
     two calls give the same bits."""
     _check(x, dt, A, Bm, Cm, None, x.shape[1])
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not shape_only(x):
         raise ValueError(f"the backward kernels run on the card; got tensors on {x.device}")
     B, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -192,6 +207,11 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, states, dh=None):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
+    if x.device.type == "meta":
+        active().add_kernel("ssd_scan_bwd", *ssd_scan_bwd_work(B, S, H, P, N, dh is not None, Q))
+        return (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
+                torch.empty_like(Bm), torch.empty_like(Cm),
+                torch.empty((B, H, P, N), dtype=torch.float32, device=x.device))
     lib = _bwd_kernels()
     group = lib.ssd_bwd_group(B, S, H, N, x.device.index)
     if group <= 0:

@@ -277,7 +277,10 @@ def prefill_into_cache(p, cfg, x, positions, cache, window: int = 0):
     for name, new in (("k", k), ("v", v)):
         c = cache[name]
         if window and S_new >= S_cache:
-            new = torch.roll(new[:, S_new - S_cache:], S_new % S_cache, dims=1)
+            # the last S_cache positions rolled by S_new % S_cache slots, as
+            # two slices (torch 2.11's DTensor has no strategy for roll)
+            tail, shift = new[:, S_new - S_cache:], S_new % S_cache
+            new = torch.cat([tail[:, S_cache - shift:], tail[:, :S_cache - shift]], dim=1)
         if new.shape[1] == S_cache:
             c.copy_(like(new.to(c.dtype), c))
         elif isinstance(c, DTensor):             # a prefix of a sharded cache

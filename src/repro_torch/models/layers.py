@@ -22,8 +22,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, local_region, shard_range
 
 __all__ = ["dense_init", "embed_init", "norm_init", "norm_specs", "apply_norm",
            "rope_frequencies", "apply_rope", "sinusoidal_pos_emb", "mlp_init", "mlp_specs",
@@ -189,7 +190,46 @@ def embedding_specs(cfg):
 
 
 def embed_tokens(p, tokens):
-    return p["tokens"][tokens]
+    """The table's rows of ``tokens`` (B, S) -> (B, S, d).
+
+    A table that is a DTensor (under a mesh) is read on local shards
+    (``sharding.local_region``), not through DTensor's index strategies,
+    which torch 2.11 cannot run backward on a batch-sharded lookup: a
+    vocab-sharded table looks the tokens up in its own rows and zeroes the
+    others (each shard's rows a term of a sum), a d-sharded table looks up
+    its own columns; on a mesh dim that shards the tokens the table is
+    gathered first.  The rows come out sharded on the batch alone, whole
+    on d (the sum taken, the columns gathered)."""
+    table = p["tokens"]
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    token_pl = (tuple(tokens.placements) if isinstance(tokens, DTensor)
+                else (Replicate(),) * mesh.ndim)
+    table_pl, out_pl = [], []
+    for tp, ip in zip(table.placements, token_pl):
+        if isinstance(ip, Shard):
+            table_pl.append(Replicate())
+            out_pl.append(ip)
+        elif isinstance(tp, Shard):
+            table_pl.append(tp)
+            out_pl.append(Partial() if tp.dim == 0 else Shard(tokens.ndim))
+        else:
+            table_pl.append(Replicate())
+            out_pl.append(Replicate())
+    first, rows = shard_range(table, 0, table_pl)
+
+    def lookup(t, ids):
+        if rows == table.shape[0]:
+            return t[ids]
+        local = ids - first
+        hit = (local >= 0) & (local < rows)
+        return torch.where(hit[..., None], t[local.clamp(0, rows - 1)], t.new_zeros(()))
+
+    out = local_region(lookup, (table, tokens), (None, None), None,
+                       out_placements=[tuple(out_pl)],
+                       in_placements=[tuple(table_pl), token_pl])
+    return constrain(out, ("batch",) + (None,) * tokens.ndim)
 
 
 def logits_head(p, cfg, x):

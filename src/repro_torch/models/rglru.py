@@ -87,10 +87,14 @@ def _conv(x, conv_w, conv_b, state=None):
 
 
 def _gates(p, x):
-    """x (..., w) -> a, gated input b, both float32."""
+    """x (B, S, w) -> a, gated input b, both float32.  The products take x
+    gathered over its width shards (``act_lru``), as GSPMD gathers it in
+    the reference; left to DTensor, torch 2.11 picks a layout it cannot
+    reach (a batch shard turned partial)."""
     xf = x.float()
-    r = torch.sigmoid(xf @ p["w_a"].float() + p["b_a"])
-    i = torch.sigmoid(xf @ p["w_i"].float() + p["b_i"])
+    xg = constrain(xf, ("batch", None, None))
+    r = torch.sigmoid(xg @ p["w_a"].float() + p["b_a"])
+    i = torch.sigmoid(xg @ p["w_i"].float() + p["b_i"])
     log_a = -_C * r * F.softplus(p["lam"])              # ≤ 0
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)

@@ -89,7 +89,9 @@ def roofline_terms(cost: CellCost, memory_floor_bytes: float = 0.0) -> dict:
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
+    if hasattr(tree, "placements"):         # a DTensor, or a launch.steps.TensorSpec
+        yield tree
+    elif isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     elif isinstance(tree, (list, tuple)):
@@ -99,18 +101,42 @@ def _leaves(tree):
         yield tree
 
 
-def tree_local_bytes(tree) -> float:
-    """Bytes of every tensor in a tree of dicts, lists and tensors (a
-    ``torch.nn.Module``'s parameters included), ``meta`` tensors by their
-    shape and dtype alone.  A 0-d tensor counts one element."""
+def _local_shape(leaf, mesh) -> tuple:
+    """The shape of the shard rank 0 holds: a DTensor's own local shard; a
+    ``TensorSpec`` split by its placements on ``mesh`` (a dim sharded over
+    mesh dims in mesh order, each split by ceiling, as DTensor splits an
+    uneven dim: rank 0 holds the largest shard); a plain tensor whole."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(leaf, DTensor):
+        return tuple(leaf.to_local().shape)
+    shape = list(leaf.shape)
+    placements = getattr(leaf, "placements", None)
+    if placements is None:
+        return tuple(shape)
+    if mesh is None:
+        raise ValueError(f"{leaf} is placed on a mesh: pass the mesh")
+    for size, p in zip(mesh.shape, placements):
+        if isinstance(p, Shard):
+            shape[p.dim] = -(-shape[p.dim] // size)
+    return tuple(shape)
+
+
+def tree_local_bytes(tree, mesh=None) -> float:
+    """Per-device bytes of every tensor in a tree of dicts, lists, tuples
+    and tensors (a ``torch.nn.Module``'s parameters included), as the
+    reference's counts a tree of sharded ``ShapeDtypeStruct``s: a DTensor
+    by its local shard, a ``launch.steps.TensorSpec`` by its placements on
+    ``mesh`` (``_local_shape``), a plain or ``meta`` tensor whole.  A 0-d
+    tensor counts one element."""
     if hasattr(tree, "parameters"):
         tree = list(tree.parameters())
     total = 0.0
     for leaf in _leaves(tree):
         n = 1
-        for dim in leaf.shape:
+        for dim in _local_shape(leaf, mesh):
             n *= int(dim)
-        total += float(n) * leaf.element_size()
+        total += float(n) * leaf.dtype.itemsize
     return total
 
 
